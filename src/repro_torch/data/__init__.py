@@ -1,0 +1,5 @@
+from repro_torch.data.synthetic import (fphab_batches, fphab_sample,
+                                        openeds_batches, openeds_sample)
+
+__all__ = ["fphab_batches", "fphab_sample", "openeds_batches",
+           "openeds_sample"]

@@ -1,0 +1,58 @@
+"""Plain PyTorch versions of the port's kernels (the correctness contract).
+
+Each function computes what its CUDA kernel computes, in the same order of
+arithmetic where that fixes the bits. The CPU path of ``kernels.ops`` runs
+them, the CPU tests hold them against ``repro.kernels.ref``, and
+``chip_smoke.py`` holds each kernel against its plain version on the card.
+Counterpart of ``repro.kernels.ref`` (int8_matmul, depthwise_conv3x3,
+quantize_rows); the attention and scan oracles wait for the LM slice.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as a 0-dim f32 tensor on ``like``'s device. Dividing by it is a
+    true division everywhere; a Python float divisor on a CUDA tensor
+    becomes a multiply by its reciprocal, which can move a .5 tie."""
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tensor,
+                b_scale: torch.Tensor) -> torch.Tensor:
+    """(M,K) int8 x (K,N) int8 -> (M,N) f32, int32 accumulation, then
+    ``(f32(acc) * a_scale[:, None]) * b_scale[None, :]``.
+
+    The sum runs in float64, whose products and sums of int8 values are
+    exact integers for any K the int32 accumulator can hold (CUDA has no
+    int32 matmul); it is then taken to int32 and converted as the kernel
+    converts its accumulator."""
+    acc = torch.matmul(a.to(torch.float64), b.to(torch.float64))
+    acc = acc.to(torch.int32)
+    return acc.to(torch.float32) * a_scale[:, None] * b_scale[None, :]
+
+
+def depthwise_conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """NHWC depthwise 3x3, stride 1, SAME padding; x: (B,H,W,C), w: (C,1,3,3)
+    (the model's layout). Nine shifted multiply-adds in fp32, in the
+    kernel's tap order; output in x's dtype."""
+    B, H, W, C = x.shape
+    xp = F.pad(x.to(torch.float32), (0, 0, 1, 1, 1, 1))
+    taps = w.to(torch.float32).reshape(C, 9)
+    acc = torch.zeros((B, H, W, C), dtype=torch.float32, device=x.device)
+    for di in range(3):
+        for dj in range(3):
+            acc = acc + xp[:, di:di + H, dj:dj + W, :] * taps[:, 3 * di + dj]
+    return acc.to(x.dtype)
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric INT8 of an (M,N) f32 tensor: (codes int8, scales
+    (M,) f32). ``torch.round`` rounds half to even, as ``jnp.round``."""
+    s = torch.clamp_min(x.abs().amax(dim=-1), 1e-8) / _scalar(127.0, x)
+    q = torch.round(x / s[:, None]).clamp(-127, 127).to(torch.int8)
+    return q, s

@@ -1,0 +1,120 @@
+"""Structural parameter definitions and the bridge to JAX parameter trees.
+
+Models declare their parameters as a tree (nested dicts) of ``ParamDef``,
+in the JAX package's layout and with its initializers, so a port and a
+reference model built from one config have the same shapes and the same
+init distributions. ``jax.random`` bits cannot be reproduced in torch, so
+tests carry a JAX tree across with ``from_jax`` instead.
+
+Layouts: the JAX package stores convs HWIO, depthwise weights (k,k,1,C) and
+dense weights (in,out); the port stores OIHW, (C,1,k,k) and (out,in). One
+permutation serves convs and depthwise weights alike (HWIO -> OIHW maps
+(k,k,1,C) to (C,1,k,k)), so the conversion needs no config.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+STATE_LEAVES = ("mean", "var")       # BN running stats: buffers, not params
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]    # logical axes, len == len(shape)
+    init: str = "normal"               # normal | zeros | ones | scaled
+    dtype: str = "bfloat16"
+    scale: float = 1.0                 # stddev multiplier for normal/scaled
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ "
+                             "in rank")
+
+
+def _leaves(tree, prefix=()):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _set(tree: Dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def materialize(defs, generator: torch.Generator,
+                device: DeviceLike = "cuda") -> Dict:
+    """Initialize a ParamDef tree as tensors (same nesting) on ``device``.
+
+    Draws come from ``generator``, a CPU generator, in sorted key order, so
+    one seed gives the same weights on every device."""
+    dev = resolve_device(device)
+    if generator.device.type != "cpu":
+        raise ValueError("materialize draws on the CPU: pass a CPU generator")
+    out: Dict = {}
+    for path, d in _leaves(defs):
+        dt = getattr(torch, d.dtype)
+        if d.init == "zeros":
+            t = torch.zeros(d.shape, dtype=dt)
+        elif d.init == "ones":
+            t = torch.ones(d.shape, dtype=dt)
+        elif d.init in ("normal", "scaled"):
+            fan_in = d.shape[0] if len(d.shape) > 1 else max(1, d.shape[-1])
+            std = (d.scale / np.sqrt(fan_in) if d.init == "scaled"
+                   else 0.02 * d.scale)
+            t = (torch.randn(d.shape, generator=generator,
+                             dtype=torch.float32) * std).to(dt)
+        else:
+            raise ValueError(f"unknown init {d.init!r} at {'.'.join(path)}")
+        _set(out, path, t.to(dev))
+    return out
+
+
+def _to_port(a) -> torch.Tensor:
+    t = a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
+    if t.dim() == 4:
+        return t.permute(3, 2, 0, 1).contiguous()      # HWIO -> OIHW
+    if t.dim() == 2:
+        return t.t().contiguous()                      # (in,out) -> (out,in)
+    return t.clone()
+
+
+def _to_jax(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dim() == 4:
+        t = t.permute(2, 3, 1, 0)                      # OIHW -> HWIO
+    elif t.dim() == 2:
+        t = t.t()
+    return np.ascontiguousarray(t.numpy())
+
+
+def from_jax(params, state) -> Dict[str, torch.Tensor]:
+    """JAX (params, bn_state) trees of arrays -> the port's state dict,
+    keyed ``<step>.<leaf>`` (CPU tensors in the port's layout)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for tree in (params, state):
+        for path, a in _leaves(tree):
+            sd[".".join(path)] = _to_port(a)
+    return sd
+
+
+def to_jax(state_dict: Mapping[str, torch.Tensor]) -> Tuple[Dict, Dict]:
+    """Inverse of ``from_jax``: numpy (params, bn_state) trees in the JAX
+    package's layout."""
+    params: Dict = {}
+    state: Dict = {}
+    for key, t in state_dict.items():
+        path = tuple(key.split("."))
+        _set(state if path[-1] in STATE_LEAVES else params, path, _to_jax(t))
+    return params, state
