@@ -4,13 +4,24 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a card and nvcc. It
-builds the CUDA kernels from the checkout's sources into build/torch_kernels/,
-holds every kernel against its plain PyTorch version at the shapes of the
-main path, runs the main path (INT8 PTQ inference of full-width DetNet and
-EDSNet, and the kernel-calibration corners) with the kernels' launch counts
-set to 0 just before it, checks the results against the same nets run on the
-CPU, and times each kernel beside its plain version, a PyTorch library call
-for the same function and the card's bound. Any failed phase exits non-zero.
+builds the CUDA kernels from the checkout's sources into build/torch_kernels/
+(one nvcc per source, all at once) and drives the port's two paths, each
+with the kernels' launch counts set to 0 just before it and read just after:
+
+  * the XR path (slice 1): INT8 PTQ inference of full-width DetNet and
+    EDSNet and the kernel-calibration corners, checked against the same nets
+    run on the CPU;
+  * the LM path (slice 2, ``lm_slice``): the prefill forward of full-width,
+    full-depth Llama-3.2-1B and Mamba-2-1.3B (random weights from a seed,
+    B=2, S=2048) and the continuous-batching server on 8 requests each;
+    then served tokens checked against the teacher-forced forward (one
+    repeat at full width in f32 and bf16, and full depth in f32), and a
+    one-repeat twin of each model checked against the CPU.
+
+Before each path every kernel of it is held against its plain PyTorch
+version at the path's shapes; after it each kernel is timed beside its plain
+version, a PyTorch library call for the same function and the card's bound.
+Any failed phase exits non-zero.
 
 Standard output ends with the card's `nvidia-smi` name and power limit, one
 JSON line with the kernels' numbers, and the result line
@@ -42,6 +53,56 @@ SENS_K = 10
 TIE = 1e-3                                       # near-tie of a flipped code
 FLIP_FRAC = 1e-3
 
+XR_KERNELS = ("depthwise_conv3x3", "int8_matmul", "quantize_rows")
+
+# -- slice 2: the LM prefill forward and the server ------------------------
+BF16_OPS_PER_S = 989e12          # tensor cores, dense
+LM_B, LM_S = 2, 2048             # prefill batch and sequence
+LM_RAGGED_S = 1000               # not a multiple of the kernel's 64-row tile
+# flash kernel vs its plain version in f32 on the same (upcast) inputs,
+# element by element: FLASH_TOL for the online softmax's other sum order
+# (times 1 + |value|), and in bf16 half a bf16 ulp (2^-8 of the value) for
+# the kernel's one rounding of its fp32 output
+FLASH_TOL = 3e-5
+HALF_ULP = {"float32": 0.0, "bfloat16": 2.0 ** -8}
+SERVE_BATCH, SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_SEQ = 4, 8, 16, 128
+# Served tokens against the teacher-forced forward over prompt + served
+# tokens. The forward sees at every position what the server saw, so each
+# position is checked on its own: the served token must be the forward's
+# argmax wherever the forward's top-2 margin is at least a near-tie
+# threshold. Decode and prefill reach the same logits along other paths and
+# differ by rounding; an argmax can flip only where the margin is under
+# twice their largest logit gap. The thresholds are fixed in advance:
+#  * one repeat at full width, f32 and bf16: tests/test_torch_lm_width.py
+#    holds the reference's and the port's decode-vs-prefill gap at serving
+#    lengths under REF_GAP on nets drawn by the same law (the reference's
+#    own gap there: ~1e-3 f32, ~3e-2 bf16). SERVE_TIE is twice REF_GAP.
+#  * full depth, f32: random nets this deep amplify rounding, most of all
+#    in Mamba, whose chunked segsum form rounds otherwise than its
+#    step-by-step recurrence; the reference cannot be run at this size to
+#    measure its gap. A decode fault moves logits by their own scale (~5),
+#    so the batch-1 teacher-forced decode's gap from the forward is held
+#    under FULL_GAP (25x and 7x the gaps the card has shown, 4.0e-4 and
+#    0.142, and a fifth of the logit scale at most); the served tokens are held to the forward's argmax at
+#    margins over 2 FULL_GAP and, for the batching, to the batch-1
+#    decode's argmax at margins over BATCH_TIE (f32 rounding of a batch of
+#    4 against a batch of 1).
+# Each check must reach at least its share of the served tokens.
+REF_GAP = {"float32": 1e-2, "bfloat16": 1e-1}
+SERVE_TIE = {dt: 2 * g for dt, g in REF_GAP.items()}
+SERVE_LEAST = {"float32": 0.75, "bfloat16": 0.25}
+FULL_GAP = {"llama3.2-1b": 1e-2, "mamba2-1.3b": 1.0}
+FULL_LEAST = {"llama3.2-1b": 0.75, "mamba2-1.3b": 0.0}
+BATCH_TIE, BATCH_LEAST = 1e-3, 0.75
+# card vs a CPU twin at full width, one repeat, two sequence lengths each
+# (Llama's second is ragged for the flash tiles; Mamba's is one chunk)
+LM_TWIN_S = {"llama3.2-1b": (512, 300), "mamba2-1.3b": (512, 200)}
+LM_TWIN_TOL = 1e-4               # f32, times max(1, max|logit|), + SENS_K x
+                                 # the card's own sensitivity
+# bf16 twin: the card's median row error from the CPU's f32 logits at most
+# BF16_FACTOR x the CPU's own bf16 error, + BF16_FLOOR (as the CPU tests)
+BF16_FACTOR, BF16_FLOOR = 2.0, 1e-2
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
@@ -51,6 +112,474 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def median_ms(fn, *args, reps=5, inner=10):
+    """Median over ``reps`` of the CUDA-event time of ``inner`` calls."""
+    import torch
+    for _ in range(3):
+        fn(*args)
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn(*args)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return statistics.median(times)
+
+
+def device_us(calls, reps=5):
+    """Device-busy microseconds per pass over ``calls`` (sum over every
+    kernel, copy and fill that ran), and by kernel name. A loop of small
+    calls can be bound by the host (Python wrapper, dispatch), and then
+    event times measure the host; the profiler's device times do not.
+    Kernel names carry the CUDA function names."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for fn, args in calls:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for fn, args in calls:
+                fn(*args)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / reps)
+    return sum(by_name.values()), by_name
+
+
+def wall_profile(fn, reps=3):
+    """Wall time of ``fn()`` (median of ``reps`` after a warm-up, host clock
+    around a synchronize, no profiler), the device-busy time in one call,
+    the idle share and the top kernels by device time; and the device
+    microseconds of that call by kernel name."""
+    import torch
+    walls = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    wall = statistics.median(walls[1:])
+    busy, by_name = device_us([(fn, ())], reps=1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall, "device_busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / 1e3 / wall,
+            "top_kernels_us": top}, by_name
+
+
+def lm_slice(dev, gen, report):
+    """Slice 2: the LM prefill forward and the continuous-batching server
+    of full-width Llama-3.2-1B and Mamba-2-1.3B. Returns the kernels-line
+    entries of flash_attention and ssd_chunk_scan."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import LM_ARCHS, get_config
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    def tree_map(fn, tree):
+        return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+                for k, v in tree.items()}
+
+    def max_err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    # -- LM 1. each kernel against its plain version at the path's shapes --
+    llama, mcfg = get_config("llama3.2-1b"), get_config("mamba2-1.3b")
+    H, Kv, D = llama.num_heads, llama.num_kv_heads, llama.head_dim
+    err = {"flash_attention": 0.0, "ssd_chunk_scan": 0.0}
+    n_flash = 0
+    for S in (LM_S, LM_RAGGED_S):
+        for K in (Kv, H):                    # the model's GQA, and K = H
+            q = torch.randn(LM_B, S, H, D, generator=gen).to(dev)
+            k = torch.randn(LM_B, S, K, D, generator=gen).to(dev)
+            v = torch.randn(LM_B, S, K, D, generator=gen).to(dev)
+            for dt in (torch.bfloat16, torch.float32):
+                # seq-major (B,S,H,D) views, as the model hands them over
+                qt, kt, vt = (t.to(dt).transpose(1, 2) for t in (q, k, v))
+                for causal in (True, False):
+                    got = ops.flash_attention(qt, kt, vt, causal)
+                    want = ref.flash_attention(qt.float(), kt.float(),
+                                               vt.float(), causal)
+                    torch.cuda.synchronize()
+                    e = max_err(got, want)
+                    lim = FLASH_TOL + (FLASH_TOL + HALF_ULP[
+                        str(dt)[6:]]) * want.abs()
+                    over = float(((got.float() - want).abs() - lim).max())
+                    check(got.dtype == dt and over <= 0,
+                          f"flash_attention S={S} K={K} {dt} causal="
+                          f"{causal}: an element is {over} over its bound "
+                          f"(max abs err {e})")
+                    n_flash += 1
+                    if (S, K, dt, causal) == (LM_S, Kv, torch.bfloat16,
+                                              True):
+                        err["flash_attention"] = e   # the main path's call
+                    print(f"  flash_attention B={LM_B} S={S} H={H} K={K} "
+                          f"D={D} {str(dt)[6:]} causal={causal}: max abs "
+                          f"err {e:.3g}")
+    scan_shape = (LM_B, LM_S // mcfg.ssm_chunk, mcfg.ssm_heads,
+                  mcfg.ssm_head_dim, mcfg.ssm_state)
+    for dt in (torch.float32, torch.bfloat16):
+        st = torch.randn(scan_shape, generator=gen).to(dev, dt)
+        dc = torch.rand(scan_shape[:3], generator=gen).to(dev)
+        got = ops.ssd_chunk_scan(st, dc)
+        want = ref.ssd_chunk_scan(st, dc)
+        torch.cuda.synchronize()
+        err["ssd_chunk_scan"] = max(err["ssd_chunk_scan"], max_err(got, want))
+        check(torch.equal(got, want), f"ssd_chunk_scan {scan_shape} {dt}: "
+              f"not bit-equal (max err {err['ssd_chunk_scan']})")
+    print(f"LM kernels vs plain: {n_flash} flash_attention cases within "
+          f"{FLASH_TOL} (1 + |value|), + half a bf16 ulp in bf16, element "
+          f"by element; ssd_chunk_scan {scan_shape} bit-equal in f32 and "
+          "bf16")
+
+    # -- LM 2. the main path: prefill forwards and the server, counted -----
+    models = {}
+    for i, arch in enumerate(LM_ARCHS):
+        cfg = get_config(arch)
+        t = time.perf_counter()
+        params = lm.init_params(cfg, torch.Generator().manual_seed(SEED + i),
+                                device=dev)
+        n = sum(t.numel() for t in _leaves(params))
+        print(f"{arch}: {n} parameters, {cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, materialized in "
+              f"{time.perf_counter() - t:.1f} s")
+        tok = next(synthetic.token_batches(LM_B, LM_S, cfg.vocab_size,
+                                           seed=0))[0]["tokens"]
+        models[arch] = (cfg, params, torch.from_numpy(tok).to(dev))
+    n_flash_fwd, n_scan_fwd = llama.num_layers, mcfg.num_layers
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t_main = time.perf_counter()
+    logits = {}
+    served = {}
+    with torch.no_grad():
+        for arch, (cfg, params, tok) in models.items():
+            logits[arch], _ = lm.forward(cfg, params, tok)
+        for arch, (cfg, params, _) in models.items():
+            served[arch] = serve.serve(
+                cfg, params, serve.make_requests(cfg, SERVE_REQUESTS,
+                                                 SERVE_NEW, seed=SEED),
+                batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ, device=dev)
+    torch.cuda.synchronize()
+    t_main = time.perf_counter() - t_main
+    lm_launches = ops.launches()
+    print(f"LM main path (2 forwards B={LM_B} S={LM_S}, 2 x "
+          f"{SERVE_REQUESTS} served requests): {t_main:.2f} s, launches "
+          f"{lm_launches}")
+    check(lm_launches["flash_attention"] == n_flash_fwd,
+          f"flash_attention: {lm_launches['flash_attention']} launches, not "
+          f"{n_flash_fwd} (one per Llama attention layer)")
+    check(lm_launches["ssd_chunk_scan"] == n_scan_fwd,
+          f"ssd_chunk_scan: {lm_launches['ssd_chunk_scan']} launches, not "
+          f"{n_scan_fwd} (one per Mamba SSD layer)")
+    for arch, lg in logits.items():
+        cfg = models[arch][0]
+        check(tuple(lg.shape) == (LM_B, LM_S, cfg.vocab_size)
+              and lg.dtype == torch.float32, f"{arch} logits {lg.shape}")
+        check(bool(torch.isfinite(lg).all()), f"{arch} logits not finite")
+    del logits
+    for arch, (done, secs) in served.items():
+        toks = sum(len(r.out_tokens) for r in done)
+        check(len(done) == SERVE_REQUESTS and toks == SERVE_REQUESTS
+              * SERVE_NEW, f"{arch} server: {len(done)} requests, {toks} "
+              "tokens")
+        check(all(0 <= t < models[arch][0].vocab_size for r in done
+                  for t in r.out_tokens), f"{arch} server: a token outside "
+              "the vocabulary")
+        report[f"serve {arch}"] = {"requests": len(done), "tokens": toks,
+                                   "seconds": secs, "tokens_per_s":
+                                   toks / secs}
+        print(f"  serve {arch}: {len(done)} requests, {toks} tokens in "
+              f"{secs:.2f} s ({toks / secs:.1f} tok/s, batch "
+              f"{SERVE_BATCH}, bf16)")
+
+    # -- LM 3. served tokens against the teacher-forced forward ------------
+    # (see SERVE_TIE and FULL_GAP above for the thresholds)
+    def decode_rows(cfg, params, seq, first):
+        """Logits of a teacher-forced batch-1 decode of ``seq``, rows
+        ``first`` onwards."""
+        cache = lm.init_cache(cfg, 1, len(seq), dev)
+        rows = []
+        for t in range(len(seq)):
+            lg, _ = lm.decode_step(cfg, params, cache, torch.tensor(
+                [[int(seq[t])]], device=dev), torch.tensor([t], device=dev))
+            if t >= first:
+                rows.append(lg[0])
+        return torch.stack(rows)
+
+    def agree(rows, tokens, tie, what):
+        """Every token whose row has a top-2 margin of at least ``tie`` is
+        that row's argmax; returns how many were checked."""
+        top2 = torch.topk(rows, 2, dim=-1)
+        margin = (top2.values[:, 0] - top2.values[:, 1]).cpu()
+        argmax = top2.indices[:, 0].cpu()
+        checked = 0
+        for i, tokn in enumerate(tokens):
+            if float(margin[i]) >= tie:
+                check(int(argmax[i]) == tokn, f"{what} position {i}: served "
+                      f"{tokn}, argmax {int(argmax[i])} (margin "
+                      f"{float(margin[i])}, near-tie threshold {tie})")
+                checked += 1
+        return checked
+
+    def served_vs_forward(cfg, params, tie, least, what, gap=None):
+        """Serve the main path's requests (batch SERVE_BATCH; made anew,
+        the engine fills them in) and hold every served
+        token to the teacher-forced forward's argmax at margins of at least
+        ``tie``; with ``gap``, also hold a batch-1 teacher-forced decode's
+        logits within ``gap`` of the forward's and the served tokens to its
+        argmax at margins of at least BATCH_TIE. Each check must reach
+        ``least`` (BATCH_LEAST) of the served tokens."""
+        done, _ = serve.serve(cfg, params, serve.make_requests(
+            cfg, SERVE_REQUESTS, SERVE_NEW, seed=SEED), batch=SERVE_BATCH,
+            max_seq=SERVE_MAX_SEQ, device=dev)
+        n_tok = sum(len(r.out_tokens) for r in done)
+        check(len(done) == SERVE_REQUESTS and n_tok == SERVE_REQUESTS
+              * SERVE_NEW, f"{what}: {len(done)} requests, {n_tok} tokens")
+        out = {"tokens": n_tok, "checked_fwd": 0, "checked_batch": 0,
+               "max_gap": 0.0}
+        for r in done:
+            seq = np.concatenate([r.prompt, np.asarray(r.out_tokens[:-1],
+                                                       np.int32)])
+            first = len(r.prompt) - 1
+            with torch.no_grad():
+                rows = lm.forward(cfg, params, torch.from_numpy(seq)[None]
+                                  .to(dev))[0][0, first:]
+                out["checked_fwd"] += agree(
+                    rows, r.out_tokens, tie,
+                    f"{what} request {r.uid} vs the forward")
+                if gap is None:
+                    continue
+                drows = decode_rows(cfg, params, seq, first)
+            g = max_err(rows, drows)
+            out["max_gap"] = max(out["max_gap"], g)
+            check(g <= gap, f"{what} request {r.uid}: batch-1 decode vs "
+                  f"forward logits differ by {g} > {gap}")
+            out["checked_batch"] += agree(
+                drows, r.out_tokens, BATCH_TIE,
+                f"{what} request {r.uid} vs the batch-1 decode")
+        check(out["checked_fwd"] >= least * n_tok, f"{what}: only "
+              f"{out['checked_fwd']} of {n_tok} served tokens checked "
+              f"against the forward (margins under {tie})")
+        if gap is not None:
+            check(out["checked_batch"] >= BATCH_LEAST * n_tok, f"{what}: "
+                  f"only {out['checked_batch']} of {n_tok} served tokens "
+                  f"checked against the batch-1 decode")
+        print(f"  {what}: of {n_tok} served tokens {out['checked_fwd']} "
+              f"checked against the forward's argmax (near-tie threshold "
+              f"{tie:.3g})" + ("" if gap is None else
+                               f", {out['checked_batch']} against the "
+                               f"batch-1 decode's; decode-vs-forward gap "
+                               f"{out['max_gap']:.4g} <= {gap}"))
+        return out
+
+    for i, (arch, (cfg, params, _)) in enumerate(models.items()):
+        # one repeat at full width, drawn by the law of a one-repeat model
+        # (as tests/test_torch_lm_width.py draws it)
+        c1 = dataclasses.replace(cfg, num_layers=lm.block_period(cfg),
+                                 dtype="float32")
+        p1 = lm.init_params(c1, torch.Generator().manual_seed(SEED + 10 + i),
+                            device=dev)
+        for dt in ("float32", "bfloat16"):
+            cast = getattr(torch, dt)
+            report[f"serve check {arch} 1 repeat {dt}"] = served_vs_forward(
+                dataclasses.replace(c1, dtype=dt),
+                tree_map(lambda t: t.to(cast), p1), SERVE_TIE[dt],
+                SERVE_LEAST[dt], f"serve {arch} 1 repeat {dt}")
+        del p1
+        # full depth, f32 copy of the main path's weights
+        p32 = tree_map(lambda t: t.float(), params)
+        report[f"serve check {arch} f32"] = served_vs_forward(
+            dataclasses.replace(cfg, dtype="float32"), p32,
+            2 * FULL_GAP[arch], FULL_LEAST[arch], f"serve {arch} f32",
+            gap=FULL_GAP[arch])
+        del p32
+        torch.cuda.empty_cache()
+
+    # -- LM 4. the card against a CPU twin, full width, one repeat ---------
+    for arch, (cfg, params, _) in models.items():
+        R1 = lm.block_period(cfg)
+        c1 = dataclasses.replace(cfg, num_layers=R1)
+        p_dev = dict(params, blocks=tree_map(lambda t: t[:1],
+                                             params["blocks"]))
+        p_cpu = tree_map(lambda t: t.cpu(), p_dev)
+        for S in LM_TWIN_S[arch]:
+            tok = torch.from_numpy(next(synthetic.token_batches(
+                1, S, cfg.vocab_size, seed=1))[0]["tokens"])
+            with torch.no_grad():
+                out = {}
+                for dt in ("float32", "bfloat16"):
+                    cast = getattr(torch, dt)
+                    pd = tree_map(lambda t: t.to(cast), p_dev)
+                    pc = tree_map(lambda t: t.to(cast), p_cpu)
+                    cd = dataclasses.replace(c1, dtype=dt)
+                    out[dt, "card"] = lm.forward(cd, pd, tok.to(dev))[0]
+                    out[dt, "cpu"] = lm.forward(cd, pc, tok)[0]
+                    if dt == "float32":
+                        nudged = dict(pd, embed=pd["embed"] * (1 + 1e-7))
+                        out["nudged"] = lm.forward(cd, nudged,
+                                                   tok.to(dev))[0]
+            want = out["float32", "cpu"]
+            got = out["float32", "card"].cpu()
+            sens = float((out["nudged"].cpu() - got).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            diff = float((got - want).abs().max())
+            lim = LM_TWIN_TOL * scale + SENS_K * sens
+            check(diff <= lim, f"{arch} S={S} f32: card vs CPU differ by "
+                  f"{diff} > {lim}")
+
+            def row_err(a):
+                d = (a.cpu().float() - want).reshape(-1, want.shape[-1])
+                return float(d.pow(2).mean(-1).sqrt().median()) / float(
+                    want.pow(2).mean().sqrt())
+            e_card = row_err(out["bfloat16", "card"])
+            e_cpu = row_err(out["bfloat16", "cpu"])
+            check(e_card <= BF16_FACTOR * e_cpu + BF16_FLOOR,
+                  f"{arch} S={S} bf16: card's median row error from f32 "
+                  f"{e_card} vs the CPU's {e_cpu}")
+            print(f"  card vs CPU {arch} 1 repeat S={S}: f32 max diff "
+                  f"{diff:.3g} (scale {scale:.3g}, sensitivity to a 1e-7 "
+                  f"embedding change {sens:.3g}); bf16 median row error "
+                  f"from the CPU's f32: card {e_card:.4g}, CPU {e_cpu:.4g}")
+            report[f"twin {arch} S={S}"] = {
+                "f32_max_diff": diff, "scale": scale, "sensitivity": sens,
+                "bf16_row_err_card": e_card, "bf16_row_err_cpu": e_cpu}
+
+    # -- LM 5. times: forwards, kernel, plain version, library call, bound -
+    # The kernels' device time per launch comes from the forwards' profile:
+    # profiled alone, their ctypes launches have shown no device time.
+    kernel_us = {}
+    for arch, (cfg, params, tok) in models.items():
+        fp, by_name = wall_profile(
+            lambda c=cfg, p=params, t=tok: lm.forward(c, p, t))
+        report[f"forward {arch}"] = fp
+        print(f"  forward {arch} B={LM_B} S={LM_S}: wall {fp['wall_ms']:.3f}"
+              f" ms, device busy {fp['device_busy_ms']:.3f} ms, idle share "
+              f"{fp['idle_share']:.3f}")
+        for kname, us in fp["top_kernels_us"]:
+            print(f"    {us:9.1f} us  {kname[:90]}")
+        for cname, name in (("flash_kernel", "flash_attention"),
+                            ("ssd_scan_kernel", "ssd_chunk_scan")):
+            us = sum(v for k, v in by_name.items() if cname in k)
+            if us:
+                kernel_us[name] = us / lm_launches[name]
+                print(f"    {name}: {kernel_us[name]:.1f} us per launch, "
+                      f"{100 * us / 1e3 / fp['device_busy_ms']:.1f}% of the "
+                      "forward's device time")
+    check(set(kernel_us) == {"flash_attention", "ssd_chunk_scan"},
+          f"the forwards' profile shows no time for {kernel_us}")
+    q, k, v = (torch.randn(LM_B, LM_S, h, D, generator=gen).to(
+        dev, torch.bfloat16).transpose(1, 2) for h in (H, Kv, Kv))
+    pairs = LM_B * H * LM_S * (LM_S + 1) // 2       # causal (q, k) pairs
+    flash_ops_ms = 4 * D * pairs / BF16_OPS_PER_S * 1e3
+    flash_bytes_ms = 2 * LM_B * LM_S * D * (2 * H + 2 * Kv) \
+        / HBM_BYTES_PER_S * 1e3
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    check(max_err(sdpa(q, k, v), ops.flash_attention(q, k, v)) <= 5e-2,
+          "flash_attention disagrees with SDPA")
+    st = torch.randn(scan_shape, generator=gen).to(dev)
+    dc = torch.rand(scan_shape[:3], generator=gen).to(dev) * 0.5 + 0.5
+    scan_bytes_ms = 4 * (2 * st.numel() + dc.numel()) / HBM_BYTES_PER_S * 1e3
+    scan_ops_ms = 2 * st.numel() / FP32_OPS_PER_S * 1e3
+
+    def segsum_form(states, decay):
+        """The reference model's inter-chunk pass: exp(segsum) over the
+        padded log decays, one einsum over all chunk pairs."""
+        cs = torch.log(decay).transpose(1, 2)                  # (B,H,NC)
+        dchunk = torch.exp(L._segsum(F.pad(cs, (1, 0))))
+        allst = torch.cat([torch.zeros_like(states[:, :1]), states], 1)
+        return torch.einsum("bhzc,bchpn->bzhpn", dchunk, allst)[:, :-1]
+    check(max_err(segsum_form(st, dc), ops.ssd_chunk_scan(st, dc)) <= 1e-3,
+          "ssd_chunk_scan disagrees with the segsum form")
+
+    times = {}
+    for name, fns, args in (
+            ("flash_attention", (ops.flash_attention, ref.flash_attention,
+                                 sdpa), (q, k, v)),
+            ("ssd_chunk_scan", (ops.ssd_chunk_scan, ref.ssd_chunk_scan,
+                                None), (st, dc))):
+        t = {}
+        for label, fn in zip(("ms", "plain_ms", "library_ms"), fns):
+            if fn is None:
+                t[label] = t[label.replace("ms", "device_ms")] = None
+                continue
+            t[label] = median_ms(fn, *args)
+            busy, by_name = device_us([(fn, args)])
+            t[label.replace("ms", "device_ms")] = busy / 1e3
+            if label == "ms":
+                print(f"    profiled alone, {name} shows {len(by_name)} "
+                      f"device entries, {busy:.1f} us")
+        t["device_ms"] = kernel_us[name] / 1e3     # per launch, main path
+        times[name] = t
+    times["ssd_chunk_scan"]["segsum_ms"] = median_ms(segsum_form, st, dc)
+    times["ssd_chunk_scan"]["segsum_device_ms"] = device_us(
+        [(segsum_form, (st, dc))])[0] / 1e3
+    times["flash_attention"].update(
+        bound_ms=max(flash_ops_ms, flash_bytes_ms),
+        bound_by="operations" if flash_ops_ms >= flash_bytes_ms else "bytes",
+        ops_ms=flash_ops_ms, bytes_ms=flash_bytes_ms)
+    times["ssd_chunk_scan"].update(
+        bound_ms=max(scan_ops_ms, scan_bytes_ms),
+        bound_by="operations" if scan_ops_ms >= scan_bytes_ms else "bytes",
+        ops_ms=scan_ops_ms, bytes_ms=scan_bytes_ms)
+    for name, t in times.items():
+        print(f"  time {name}: " + ", ".join(
+            f"{k} {v:.5g}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in t.items()))
+    report["lm_times"] = times
+
+
+    meta = {"flash_attention": ("flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:65"),
+            "ssd_chunk_scan": ("ssd_scan.cu",
+                               "src/repro/kernels/ssd_scan.py:34")}
+    entries = []
+    for name, (src, replaces) in meta.items():
+        t = times[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": lm_launches[name],
+            "max_abs_err": err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"],
+            "plain_device_ms": t["plain_device_ms"],
+            "library_device_ms": t["library_device_ms"]})
+    for k in ("segsum_ms", "segsum_device_ms"):
+        entries[1][k] = times["ssd_chunk_scan"][k]
+    return entries
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 def main() -> None:
@@ -207,9 +736,9 @@ def main() -> None:
     torch.cuda.synchronize()
     t_main = time.perf_counter() - t_main
     launches = ops.launches()
-    print(f"main path: {t_main:.2f} s, launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    print(f"XR main path: {t_main:.2f} s, launches {launches}")
+    for name in XR_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on the XR path")
     check(launches["depthwise_conv3x3"] == 7 * 13 + 2,
           "depthwise launches: 13 per forward x 7 forwards + 2 corners")
 
@@ -296,22 +825,6 @@ def main() -> None:
     report["calibration"] = {"constants": constants, "residuals": residuals}
 
     # -- 8. times: kernel, plain version, library call, bound --------------
-    def median_ms(fn, *args, reps=5, inner=10):
-        """Median over ``reps`` of the CUDA-event time of ``inner`` calls."""
-        for _ in range(3):
-            fn(*args)
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(inner):
-                fn(*args)
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b) / inner)
-        return statistics.median(times)
-
     def row(shape, fns, args, nbytes, op_secs):
         """Times of kernel, plain version and library call (None if there
         is none) on the same inputs, beside the bound: the larger of the
@@ -358,31 +871,6 @@ def main() -> None:
         rows["quantize_rows"].append(row(
             (m, n), (ops.quantize_rows, ref.quantize_rows, None), (x,),
             5 * m * n + 4 * m, 6 * m * n / FP32_OPS_PER_S))
-    # Device time from the profiler: a loop of small calls can be bound by
-    # the host (Python wrapper, dispatch), and then the event times above
-    # measure the host. Kernel names carry the CUDA function names.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def device_us(calls, reps=5):
-        """Device-busy microseconds per pass over ``calls`` (sum over every
-        kernel, copy and fill that ran), and by kernel name."""
-        for fn, args in calls:
-            fn(*args)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                for fn, args in calls:
-                    fn(*args)
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = (by_name.get(e.name, 0.0)
-                                   + e.time_range.elapsed_us() / reps)
-        return sum(by_name.values()), by_name
-
     dev_inputs = {
         "depthwise_conv3x3": [
             (torch.randn(sh, generator=gen).to(dev),
@@ -451,6 +939,9 @@ def main() -> None:
                   f"{lib}  bound {r['bound_ms']:.5f} ({r['bound_by']})")
     report["times"] = rows
 
+    # -- slice 2: the LM path (LM 1-5 in lm_slice) --------------------------
+    lm_entries = lm_slice(dev, gen, report)
+
     # -- 9. the kernels line -----------------------------------------------
     # depthwise: summed over the 26 stride-1 steps of one DetNet b8 and one
     # EDSNet b2 forward; int8_matmul and quantize_rows: the calibration
@@ -486,6 +977,7 @@ def main() -> None:
             "device_ms": device[name]["ms"],
             "plain_device_ms": device[name]["plain_ms"],
             "library_device_ms": device[name]["library_ms"]})
+    kernels += lm_entries
     report["kernels"] = kernels
     report["wall_s"] = time.perf_counter() - t0
     (ROOT / "build").mkdir(exist_ok=True)

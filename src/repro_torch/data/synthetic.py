@@ -1,14 +1,14 @@
-"""Deterministic synthetic XR datasets (numpy), an own copy of the XR half
-of ``repro.data.synthetic``: the same (seed, index) gives the same arrays.
+"""Deterministic synthetic datasets (numpy), an own copy of
+``repro.data.synthetic``: the same (seed, index) gives the same arrays.
 
   * FPHAB-style  -- egocentric frames with two rendered "hands" (bright
     blobs); labels are 21-keypoint clouds reduced to bounding circles
     (center = keypoint mean, radius = max distance).
   * OpenEDS-style -- near-IR eye images built from nested ellipses with
     4-class masks (background / sclera / iris / pupil).
+  * LM tokens    -- a Zipfian next-token stream (tokens + shifted labels).
 
-Generators are pure functions of (seed, index). The LM token stream waits
-for the LM slice.
+Generators are pure functions of (seed, index).
 """
 from __future__ import annotations
 
@@ -95,3 +95,22 @@ def openeds_batches(batch: int, hw=(384, 640), seed=0, start_idx: int = 0
         samples = [openeds_sample(seed, idx + i, hw) for i in range(batch)]
         idx += batch
         yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}, idx
+
+
+# ---------------------------------------------------------------------------
+# LM token stream
+# ---------------------------------------------------------------------------
+
+def token_batches(batch: int, seq_len: int, vocab: int, seed=0,
+                  start_idx: int = 0) -> Iterator[Tuple[Dict[str, np.ndarray], int]]:
+    """Zipfian next-token stream: tokens + shifted labels."""
+    idx = start_idx
+    ranks = np.arange(1, vocab + 1)
+    probs = 1.0 / ranks ** 1.1
+    probs /= probs.sum()
+    while True:
+        rng = np.random.default_rng((seed + 2, idx))
+        toks = rng.choice(vocab, size=(batch, seq_len + 1), p=probs)
+        idx += batch
+        yield dict(tokens=toks[:, :-1].astype(np.int32),
+                   labels=toks[:, 1:].astype(np.int32)), idx

@@ -22,7 +22,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("depthwise_conv", "int8_matmul", "quantize")
+SOURCES = ("depthwise_conv", "int8_matmul", "quantize", "flash_attention",
+           "ssd_scan")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 

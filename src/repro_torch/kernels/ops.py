@@ -10,13 +10,17 @@ its launches (``<module>.<function>.launches``).
 from __future__ import annotations
 
 from repro_torch.kernels import depthwise_conv as _dw
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import int8_matmul as _mm
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 KERNELS = {"depthwise_conv3x3": _dw.depthwise_conv3x3,
            "int8_matmul": _mm.int8_matmul,
-           "quantize_rows": _q.quantize_rows}
+           "quantize_rows": _q.quantize_rows,
+           "flash_attention": _fa.flash_attention,
+           "ssd_chunk_scan": _ssd.ssd_chunk_scan}
 
 
 def _on_cuda(t) -> bool:
@@ -48,6 +52,24 @@ def quantize_rows(x):
         return _q.quantize_rows(x)
     _q.check_args(x)
     return ref.quantize_rows(x)
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Attention of q (B,H,S,D) over k, v (B,K,S,D), K dividing H; any S,
+    strided views allowed. Returns (B,H,S,D) in q's dtype."""
+    if _on_cuda(q):
+        return _fa.flash_attention(q, k, v, causal)
+    _fa.check_args(q, k, v)
+    return ref.flash_attention(q, k, v, causal)
+
+
+def ssd_chunk_scan(states, decay):
+    """states (B,NC,H,P,N), decay (B,NC,H) -> the state before each chunk,
+    (B,NC,H,P,N) in the states' dtype."""
+    if _on_cuda(states):
+        return _ssd.ssd_chunk_scan(states, decay)
+    _ssd.check_args(states, decay)
+    return ref.ssd_chunk_scan(states, decay)
 
 
 def reset_launches() -> None:

@@ -5,10 +5,11 @@ arithmetic where that fixes the bits. The CPU path of ``kernels.ops`` runs
 them, the CPU tests hold them against ``repro.kernels.ref``, and
 ``chip_smoke.py`` holds each kernel against its plain version on the card.
 Counterpart of ``repro.kernels.ref`` (int8_matmul, depthwise_conv3x3,
-quantize_rows); the attention and scan oracles wait for the LM slice.
+flash_attention, ssd_chunk_scan, quantize_rows).
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -56,3 +57,40 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     s = torch.clamp_min(x.abs().amax(dim=-1), 1e-8) / _scalar(127.0, x)
     q = torch.round(x / s[:, None]).clamp(-127, 127).to(torch.int8)
     return q, s
+
+
+NEG_INF = -1e30        # the reference kernels' mask value, never -inf
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention of q (B,H,S,D) over k, v (B,K,S,D), K dividing H (query
+    head h reads kv head h // (H/K)); any strides. Scores, softmax and the
+    probability-weighted sum of v all in fp32, scale 1/sqrt(D), causal mask
+    ``NEG_INF``; output (B,H,S,D) in q's dtype, as the kernel computes it
+    (the kernel's online softmax reaches the same sums in another order)."""
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    kf = k.to(torch.float32).repeat_interleave(G, dim=1)
+    vf = v.to(torch.float32).repeat_interleave(G, dim=1)
+    scores = torch.matmul(q.to(torch.float32), kf.transpose(-1, -2)) \
+        * (1.0 / math.sqrt(D))
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.matmul(probs, vf).to(q.dtype)
+
+
+def ssd_chunk_scan(states: torch.Tensor, decay: torch.Tensor) -> torch.Tensor:
+    """Mamba-2 inter-chunk state recurrence over states (B,NC,H,P,N) and
+    decay (B,NC,H): ``s_0 = 0, s_{c+1} = s_c * decay_c + states_c``, returning
+    s_c for each c (the state before chunk c), fp32 carry, in the states'
+    dtype."""
+    s = torch.zeros_like(states[:, 0], dtype=torch.float32)
+    out = torch.empty_like(states)
+    for c in range(states.shape[1]):
+        out[:, c] = s.to(states.dtype)
+        s = s * decay[:, c, :, None, None].to(torch.float32) \
+            + states[:, c].to(torch.float32)
+    return out

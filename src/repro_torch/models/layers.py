@@ -1,0 +1,379 @@
+"""Building blocks of the LM stack, port of ``repro.models.layers``.
+
+Functional like the reference: ``f(cfg, p, x, ...) -> y`` on tensors, with
+the reference's parameter layout (dense weights ``(in, out)``, used as
+``x @ w``). Activations are in the model dtype (bf16); norms, softmax and
+the SSD accumulation run in fp32, rounding where the reference rounds.
+
+The causal prefill attention is one ``kernels.ops.flash_attention`` call
+over the whole sequence (the reference's block-triangular ``q_block`` loop
+is what that kernel computes); the SSD prefill's inter-chunk state pass is
+``kernels.ops.ssd_chunk_scan`` (the reference computes it with a segsum
+einsum). Decode runs neither kernel, as in the reference.
+
+Not ported (``lm.check_ported`` or the stubs here raise
+``NotImplementedError``): MoE, cross-attention, layernorm, attention logit
+softcaps, sliding windows, qk-norm, GeLU and ungated MLPs (ROADMAP.md,
+Queue 1: "remaining LM modules"). Nothing runs a plain stand-in for them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF, _scalar
+from repro_torch.models.params import ParamDef
+
+f32 = torch.float32
+_UNPORTED = "is not ported to repro_torch yet (ROADMAP.md, Queue 1: " \
+            "remaining LM modules)"
+
+
+def unported(what: str):
+    raise NotImplementedError(f"{what} {_UNPORTED}")
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(f32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + w.to(f32))).to(x.dtype)
+
+
+def layernorm(x, w, b, eps):
+    unported("layernorm")
+
+
+# ---------------------------------------------------------------------------
+# positions
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=f32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) int. Half-split rotation with
+    fp32 angles, output in x's dtype."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)      # (hd/2,)
+    ang = positions.to(f32)[..., None] * freqs                   # (B,S,hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(f32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def attn_param_defs(cfg: ModelConfig, layer_dim: Tuple[int, ...] = ()) -> Dict:
+    D, Q, KV = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    ax = tuple(["layer"] * len(layer_dim))
+    return {
+        "norm": ParamDef(layer_dim + (D,), ax + ("embed",), "zeros"),
+        "wq": ParamDef(layer_dim + (D, Q), ax + ("fsdp", "tensor"), "scaled"),
+        "wk": ParamDef(layer_dim + (D, KV), ax + ("fsdp", "tensor"), "scaled"),
+        "wv": ParamDef(layer_dim + (D, KV), ax + ("fsdp", "tensor"), "scaled"),
+        "wo": ParamDef(layer_dim + (Q, D), ax + ("tensor", "fsdp"), "scaled"),
+    }
+
+
+def check_attention(cfg: ModelConfig, is_local: bool = False) -> None:
+    """Raise for the attention variants the port does not run."""
+    if cfg.attn_logit_softcap > 0:
+        unported("attention logit softcap")
+    if is_local and cfg.sliding_window:
+        unported("sliding-window attention")
+
+
+def _group_q(q: torch.Tensor, num_kv: int) -> torch.Tensor:
+    """(B,T,H,hd) -> (B,T,K,G,hd): group query heads by their kv head."""
+    B, T, H, hd = q.shape
+    return q.reshape(B, T, num_kv, H // num_kv, hd)
+
+
+def _qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+         positions: torch.Tensor):
+    B, S, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, K, hd)
+    v = (x @ p["wv"]).reshape(B, S, K, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa_block(q, k, v, mask, scale: float, bf16_chain: bool = False):
+    """Decode attention tile, grouped-query form, as the reference's
+    ``_sdpa_block`` (softcap 0): fp32 QK scores, softmax, probabilities
+    rounded to q's dtype before the PV product.
+
+    q: (B,T,K,G,hd); k/v: (B,L,K,hd); mask broadcastable to (B,K,G,T,L)."""
+    B, T, K, G, hd = q.shape
+    L = k.shape[1]
+    qf = q.permute(0, 2, 3, 1, 4).reshape(B, K, G * T, hd)
+    kf = k.permute(0, 2, 1, 3)                                   # (B,K,L,hd)
+    scores = torch.matmul(qf.to(f32), kf.to(f32).transpose(-1, -2)) * scale
+    scores = scores.reshape(B, K, G, T, L)
+    if bf16_chain:
+        # subtract the fp32 row max first, then drop to bf16
+        m = (torch.amax(scores.masked_fill(~mask, -math.inf), dim=-1,
+                        keepdim=True)
+             if mask is not None else torch.amax(scores, -1, keepdim=True))
+        scores = (scores - m).to(torch.bfloat16)
+        if mask is not None:
+            scores = scores.masked_fill(~mask, NEG_INF)
+        e = torch.exp(scores)
+        probs = e / torch.sum(e, dim=-1, keepdim=True)
+    else:
+        if mask is not None:
+            scores = scores.masked_fill(~mask, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+    pf = probs.to(q.dtype).reshape(B, K, G * T, L)
+    vf = v.permute(0, 2, 1, 3)                                   # (B,K,L,hd)
+    out = torch.matmul(pf, vf.to(q.dtype))
+    return out.reshape(B, K, G, T, hd).permute(0, 3, 1, 2, 4)
+
+
+def attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+              positions: torch.Tensor, *, is_local: bool = False,
+              causal: bool = True) -> torch.Tensor:
+    """Train / prefill attention: one flash-attention call over the whole
+    sequence, reading the seq-major projections through strides."""
+    check_attention(cfg, is_local)
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q, k, v = _qkv(cfg, p, x, positions)
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal)         # (B,H,S,hd)
+    out = out.transpose(1, 2).reshape(B, S, H * cfg.head_dim)
+    return out @ p["wo"]
+
+
+def attention_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     position: torch.Tensor, *, is_local: bool = False,
+                     ring: bool = False, scales=None):
+    """Single-token decode. x: (B,1,D); cache: (B,S_len,K,hd); position:
+    (B,). The cache (and the INT8 cache's scales) are updated in place;
+    returns (out, cache_k, cache_v, scales).
+
+    ``ring=True``: the cache is a ring buffer (slot = position % S_len),
+    K/V stored RoPE'd at their absolute position."""
+    check_attention(cfg, is_local)
+    B = x.shape[0]
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    S_len = cache_k.shape[1]
+    position = position.to(torch.long)
+    q, k, v = _qkv(cfg, p, x, position[:, None])
+    slot = (position % S_len) if ring else position
+    bidx = torch.arange(B, device=x.device)
+    if scales is not None:                    # INT8 cache: quantize new row
+        ks, vs = scales
+        eps, qmax = 1e-8, _scalar(127.0, x)
+        k_sc = torch.amax(k[:, 0].abs().to(f32), dim=-1) / qmax + eps
+        v_sc = torch.amax(v[:, 0].abs().to(f32), dim=-1) / qmax + eps
+        k_row = torch.clamp(torch.round(k[:, 0].to(f32) / k_sc[..., None]),
+                            -127, 127)
+        v_row = torch.clamp(torch.round(v[:, 0].to(f32) / v_sc[..., None]),
+                            -127, 127)
+        cache_k[bidx, slot] = k_row.to(torch.int8)
+        cache_v[bidx, slot] = v_row.to(torch.int8)
+        ks[bidx, slot] = k_sc.to(ks.dtype)
+        vs[bidx, slot] = v_sc.to(vs.dtype)
+    else:
+        cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)   # in place
+        cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
+
+    kpos = torch.arange(S_len, device=x.device)[None, :]        # (1,S_len)
+    if ring:
+        # absolute position stored in slot s: the largest p' <= position
+        # with p' % S_len == s; valid iff it has been written (p' >= 0)
+        stored = position[:, None] - torch.remainder(position[:, None] - kpos,
+                                                     S_len)
+        mask = stored >= 0
+    else:
+        mask = kpos <= position[:, None]
+    if scales is not None:
+        # dequantized views feed the dots; the persistent cache stays int8
+        bf = torch.bfloat16
+        kf = cache_k.to(bf) * scales[0][..., None].to(bf)
+        vf = cache_v.to(bf) * scales[1][..., None].to(bf)
+    else:
+        kf, vf = cache_k, cache_v
+    out = _sdpa_block(_group_q(q, K), kf, vf, mask[:, None, None, None, :],
+                      1.0 / math.sqrt(hd), bf16_chain=cfg.decode_bf16_scores)
+    out = out.reshape(B, 1, H * hd) @ p["wo"]
+    return out, cache_k, cache_v, scales
+
+
+def cross_attention(cfg, p, x, enc_k, enc_v):
+    unported("cross-attention (encoder-decoder)")
+
+
+# ---------------------------------------------------------------------------
+# MLP / MoE
+# ---------------------------------------------------------------------------
+
+def mlp_param_defs(cfg: ModelConfig, layer_dim: Tuple[int, ...] = ()) -> Dict:
+    D, Fd = cfg.d_model, cfg.d_ff
+    ax = tuple(["layer"] * len(layer_dim))
+    return {
+        "norm": ParamDef(layer_dim + (D,), ax + ("embed",), "zeros"),
+        "wi_gate": ParamDef(layer_dim + (D, Fd), ax + ("fsdp", "tensor"),
+                            "scaled"),
+        "wi_up": ParamDef(layer_dim + (D, Fd), ax + ("fsdp", "tensor"),
+                          "scaled"),
+        "wo": ParamDef(layer_dim + (Fd, D), ax + ("tensor", "fsdp"), "scaled"),
+    }
+
+
+def mlp(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Gated SiLU MLP (SwiGLU)."""
+    return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+
+
+def moe(cfg, p, x):
+    unported("mixture-of-experts")
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD)
+# ---------------------------------------------------------------------------
+
+def ssm_param_defs(cfg: ModelConfig, layer_dim: Tuple[int, ...] = ()) -> Dict:
+    D = cfg.d_model
+    di, ds, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv_dim = di + 2 * ds
+    ax = tuple(["layer"] * len(layer_dim))
+    return {
+        "norm": ParamDef(layer_dim + (D,), ax + ("embed",), "zeros"),
+        "in_proj": ParamDef(layer_dim + (D, 2 * di + 2 * ds + nh),
+                            ax + ("fsdp", "tensor"), "scaled"),
+        "conv_w": ParamDef(layer_dim + (cfg.ssm_conv_width, conv_dim),
+                           ax + (None, "tensor"), "scaled", scale=0.5),
+        "conv_b": ParamDef(layer_dim + (conv_dim,), ax + ("tensor",), "zeros"),
+        "A_log": ParamDef(layer_dim + (nh,), ax + (None,), "arange_neg"),
+        "D_skip": ParamDef(layer_dim + (nh,), ax + (None,), "ones"),
+        "dt_bias": ParamDef(layer_dim + (nh,), ax + (None,), "zeros"),
+        "gate_norm": ParamDef(layer_dim + (di,), ax + ("tensor",), "zeros"),
+        "out_proj": ParamDef(layer_dim + (di, D), ax + ("tensor", "fsdp"),
+                             "scaled"),
+    }
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x: (..., Q) -> (..., Q, Q) lower-tri cumulative segment sums."""
+    Q = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    return diff.masked_fill(~mask, -math.inf)
+
+
+def _ssm_inputs(cfg: ModelConfig, p: Dict, x: torch.Tensor):
+    """Shared in_proj for the prefill and decode paths: (z, xBC, dt)."""
+    di, ds = cfg.d_inner, cfg.ssm_state
+    zxbcdt = x @ p["in_proj"]
+    return torch.split(zxbcdt, [di, di + 2 * ds, cfg.ssm_heads], dim=-1)
+
+
+def _causal_conv(xBC: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over (B, S, C); w: (K, C); then silu."""
+    K, C = w.shape
+    xt = F.pad(xBC.transpose(1, 2), (K - 1, 0))                  # (B,C,S+K-1)
+    out = F.conv1d(xt, w.t()[:, None, :], groups=C).transpose(1, 2)
+    return F.silu(out + b)
+
+
+def ssd(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Mamba-2 SSD block, chunked prefill form [arXiv:2405.21060]."""
+    B, S, _ = x.shape
+    di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    Q = min(cfg.ssm_chunk, S)
+    if S % Q:
+        raise ValueError(f"ssd: sequence {S} is not a multiple of the chunk "
+                         f"{Q}")
+    nc = S // Q
+
+    z, xBC, dt = _ssm_inputs(cfg, p, x)
+    xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
+    xs, B_, C_ = torch.split(xBC, [di, ds, ds], dim=-1)
+
+    dt = F.softplus(dt.to(f32) + p["dt_bias"].to(f32))           # (B,S,nh)
+    A = -torch.exp(p["A_log"].to(f32))                           # (nh,)
+
+    X = xs.reshape(B, S, nh, hd).to(f32)
+    Xd = X * dt[..., None]
+    dA = (dt * A).reshape(B, nc, Q, nh).permute(0, 3, 1, 2)      # (B,nh,nc,Q)
+    Bc = B_.reshape(B, nc, Q, ds).to(f32)
+    Cc = C_.reshape(B, nc, Q, ds).to(f32)
+    Xc = Xd.reshape(B, nc, Q, nh, hd)
+
+    A_cum = torch.cumsum(dA, dim=-1)                             # (B,nh,nc,Q)
+    L = torch.exp(_segsum(dA))                                   # (B,nh,nc,Q,Q)
+    Y_diag = torch.einsum("bcln,bcsn,bhcls,bcshp->bclhp", Cc, Bc, L, Xc)
+
+    decay_states = torch.exp(A_cum[..., -1:] - A_cum)            # (B,nh,nc,Q)
+    states = torch.einsum("bcln,bhcl,bclhp->bchpn", Bc, decay_states, Xc)
+    chunk_sum = A_cum[..., -1]                                   # (B,nh,nc)
+    # the state before each chunk: s_0 = 0, s_{c+1} = s_c*exp(sum_c)+states_c
+    prev_states = ops.ssd_chunk_scan(states,
+                                     torch.exp(chunk_sum).transpose(1, 2))
+
+    out_decay = torch.exp(A_cum)                                 # (B,nh,nc,Q)
+    Y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", Cc, prev_states, out_decay)
+    Y = (Y_diag + Y_off).reshape(B, S, nh, hd)
+    Y = Y + p["D_skip"].to(f32)[None, None, :, None] * X
+    y = Y.reshape(B, S, di).to(x.dtype)
+
+    y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    return y @ p["out_proj"]
+
+
+def ssd_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+               conv_state: torch.Tensor, ssm_state: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token SSD step. x: (B,1,D); conv_state: (B,K-1,conv_dim);
+    ssm_state: (B,nh,hd,ds). Returns (out, new conv state, new ssm state)."""
+    B = x.shape[0]
+    di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    z, xBC, dt = _ssm_inputs(cfg, p, x)                          # (B,1,*)
+    window = torch.cat([conv_state, xBC], dim=1)                 # (B,K,conv)
+    conv_out = torch.einsum("bkc,kc->bc", window.to(f32),
+                            p["conv_w"].to(f32)) + p["conv_b"].to(f32)
+    xBC = F.silu(conv_out)[:, None, :].to(x.dtype)
+    new_conv_state = window[:, 1:]
+
+    xs, B_, C_ = torch.split(xBC, [di, ds, ds], dim=-1)
+    dt = F.softplus(dt[:, 0].to(f32) + p["dt_bias"].to(f32))     # (B,nh)
+    A = -torch.exp(p["A_log"].to(f32))
+    dA = torch.exp(dt * A)                                       # (B,nh)
+    X = xs[:, 0].reshape(B, nh, hd).to(f32)
+    Bv = B_[:, 0].to(f32)                                        # (B,ds)
+    Cv = C_[:, 0].to(f32)
+    new_ssm = (ssm_state * dA[..., None, None]
+               + dt[..., None, None] * X[..., None] * Bv[:, None, None, :])
+    Y = torch.einsum("bhpn,bn->bhp", new_ssm, Cv)
+    Y = Y + p["D_skip"].to(f32)[None, :, None] * X
+    y = Y.reshape(B, 1, di).to(x.dtype)
+    y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    return y @ p["out_proj"], new_conv_state, new_ssm

@@ -1,0 +1,275 @@
+"""The LM stack, port of ``repro.models.lm``: prefill forward and decode.
+
+Parameters are the reference's tree: a period block of sublayers whose
+weights are stacked over ``num_repeats`` (leading dim R), in the reference's
+layout, so ``models.params.lm_from_jax`` carries a JAX tree across as it is.
+A Python loop over the repeats takes the place of ``lax.scan``.
+
+Entry points (functions on tensors, as in the reference):
+  * ``param_defs(cfg)`` / ``init_params(cfg, generator, device)``
+  * ``forward(cfg, params, tokens)`` -- prefill logits (fp32)
+  * ``init_cache(cfg, batch, s_max, device)`` + ``decode_step(...)`` -- serving
+
+The decode cache is a dict of stacked tensors that ``decode_step`` updates
+in place (the reference donates its cache to the jit instead).
+
+Ported sublayers: attention (rope, grouped-query, the INT8 KV cache), the
+gated SiLU MLP and Mamba-2 SSD. What the other architectures add (MoE,
+encoder/cross-attention, image tokens, sinusoidal positions, logit
+softcaps, sliding windows, sandwich norms, embedding scaling, qk-norm,
+GeLU and ungated MLPs) raises ``NotImplementedError`` in ``check_ported``
+(ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike
+from repro_torch.models import layers as L
+from repro_torch.models.params import ParamDef, materialize
+
+f32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# structure
+# ---------------------------------------------------------------------------
+
+def block_period(cfg: ModelConfig) -> int:
+    """Length of the repeating layer pattern."""
+    p = 1
+    if cfg.local_global_period:
+        p = math.lcm(p, cfg.local_global_period)
+    if cfg.attn_period:
+        p = math.lcm(p, cfg.attn_period)
+    if cfg.num_experts:
+        p = math.lcm(p, cfg.moe_period)
+    if cfg.num_layers % p != 0:
+        raise ValueError(f"{cfg.name}: num_layers={cfg.num_layers} not a "
+                         f"multiple of layer pattern period {p}")
+    return p
+
+
+def num_repeats(cfg: ModelConfig) -> int:
+    return cfg.num_layers // block_period(cfg)
+
+
+def sublayer_kind(cfg: ModelConfig, j: int) -> Dict[str, bool]:
+    """Static description of sublayer ``j`` of the period block."""
+    return dict(
+        attn=cfg.is_attn_layer(j),
+        ssm=(not cfg.is_attn_layer(j)) and cfg.ssm_state > 0,
+        moe=cfg.is_moe_layer(j),
+        local=cfg.is_local_layer(j),
+        mlp=cfg.d_ff > 0 and not cfg.is_moe_layer(j),
+    )
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run."""
+    for present, what in (
+            (cfg.num_experts, "mixture-of-experts"),
+            (cfg.encoder_layers or cfg.cross_attention,
+             "encoder / cross-attention"),
+            (cfg.num_image_tokens, "image-token merging"),
+            (cfg.rope_theta == 0, "sinusoidal positions"),
+            (cfg.final_logit_softcap > 0, "final logit softcap"),
+            (cfg.attn_logit_softcap > 0, "attention logit softcap"),
+            (cfg.sliding_window, "sliding-window attention"),
+            (cfg.sandwich_norm, "sandwich norms"),
+            (cfg.scale_embedding, "embedding scaling"),
+            (cfg.qk_norm, "qk-norm"),
+            (cfg.act != "silu" or not cfg.mlp_gated,
+             f"the {cfg.act} {'gated ' * cfg.mlp_gated}MLP")):
+        if present:
+            L.unported(f"{what} ({cfg.name})")
+
+
+# ---------------------------------------------------------------------------
+# parameter definitions
+# ---------------------------------------------------------------------------
+
+def _sublayer_defs(cfg: ModelConfig, j: int, R: int) -> Dict:
+    kind = sublayer_kind(cfg, j)
+    ld = (R,)
+    d: Dict[str, Dict] = {}
+    if kind["attn"]:
+        d["attn"] = L.attn_param_defs(cfg, ld)
+    if kind["ssm"]:
+        d["ssm"] = L.ssm_param_defs(cfg, ld)
+    if kind["mlp"]:
+        d["mlp"] = L.mlp_param_defs(cfg, ld)
+    return d
+
+
+def param_defs(cfg: ModelConfig) -> Dict:
+    check_ported(cfg)
+    D, V = cfg.d_model, cfg.vocab_size
+    R, period = num_repeats(cfg), block_period(cfg)
+    defs: Dict = {
+        "embed": ParamDef((V, D), ("tensor", "fsdp"), "normal"),
+        "final_norm": ParamDef((D,), ("embed",), "zeros"),
+        "blocks": {f"blk{j}": _sublayer_defs(cfg, j, R)
+                   for j in range(period)},
+    }
+    if not cfg.tie_embeddings:
+        defs["head"] = ParamDef((D, V), ("fsdp", "tensor"), "scaled")
+    return defs
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: DeviceLike = "cuda") -> Dict:
+    """Random parameters under the reference's init rules, drawn from a CPU
+    ``generator`` (the same seed gives the same weights on every device)."""
+    return materialize(param_defs(cfg), generator, device)
+
+
+def _at(tree: Dict, r: int) -> Dict:
+    """Repeat ``r`` of a stacked tree (views, so writes reach the stack)."""
+    return {k: _at(v, r) if isinstance(v, dict) else v[r]
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# sublayers (prefill form)
+# ---------------------------------------------------------------------------
+
+def _apply_sublayer(cfg: ModelConfig, kind: Dict, p: Dict, x: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """Pre-norm residual sublayer."""
+    if kind["attn"]:
+        h = L.rmsnorm(x, p["attn"]["norm"], cfg.norm_eps)
+        x = x + L.attention(cfg, p["attn"], h, positions,
+                            is_local=kind["local"])
+    elif kind["ssm"]:
+        h = L.rmsnorm(x, p["ssm"]["norm"], cfg.norm_eps)
+        x = x + L.ssd(cfg, p["ssm"], h)
+    if kind["mlp"]:
+        h = L.rmsnorm(x, p["mlp"]["norm"], cfg.norm_eps)
+        x = x + L.mlp(cfg, p["mlp"], h)
+    return x
+
+
+def _unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and head; the product is rounded to the activation dtype
+    before the cast to fp32, as in the reference."""
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    return (x @ head.to(x.dtype)).to(f32)
+
+
+# ---------------------------------------------------------------------------
+# prefill forward
+# ---------------------------------------------------------------------------
+
+def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward of tokens (B,S) on the parameters' device.
+    Returns (logits fp32 (B,S,V), moe_aux_loss), the aux loss 0 (no MoE)."""
+    check_ported(cfg)
+    B, S = tokens.shape
+    period = block_period(cfg)
+    x = params["embed"][tokens.to(torch.long)]             # (B,S,D) gather
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    kinds = [sublayer_kind(cfg, j) for j in range(period)]
+    for r in range(num_repeats(cfg)):
+        blk = _at(params["blocks"], r)
+        for j in range(period):
+            x = _apply_sublayer(cfg, kinds[j], blk[f"blk{j}"], x, positions)
+    return _unembed(cfg, params, x), torch.zeros((), dtype=f32,
+                                                 device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# decode (serving)
+# ---------------------------------------------------------------------------
+
+def cache_defs(cfg: ModelConfig, batch: int, s_max: int) -> Dict:
+    """ParamDef tree of the decode cache: attention sublayers carry (k, v)
+    (INT8 with per-(position, head) scales if ``cfg.kv_cache_int8``), SSM
+    sublayers a conv window and the SSD state."""
+    check_ported(cfg)
+    R, period = num_repeats(cfg), block_period(cfg)
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    dt = cfg.dtype
+    cache: Dict = {}
+    for j in range(period):
+        kind = sublayer_kind(cfg, j)
+        c: Dict = {}
+        if kind["attn"]:
+            axes = ("layer", "batch", "kv_seq", "kv_heads", None)
+            cdt = "int8" if cfg.kv_cache_int8 else dt
+            c["k"] = ParamDef((R, batch, s_max, K, hd), axes, "zeros", cdt)
+            c["v"] = ParamDef((R, batch, s_max, K, hd), axes, "zeros", cdt)
+            if cfg.kv_cache_int8:
+                sax = ("layer", "batch", "kv_seq", "kv_heads")
+                c["k_scale"] = ParamDef((R, batch, s_max, K), sax, "zeros",
+                                        dt)
+                c["v_scale"] = ParamDef((R, batch, s_max, K), sax, "zeros",
+                                        dt)
+        if kind["ssm"]:
+            conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+            c["conv"] = ParamDef((R, batch, cfg.ssm_conv_width - 1, conv_dim),
+                                 ("layer", "batch", None, "tensor"), "zeros",
+                                 dt)
+            c["ssm"] = ParamDef((R, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                 cfg.ssm_state),
+                                ("layer", "batch", "heads", None, None),
+                                "zeros", "float32")
+        cache[f"blk{j}"] = c
+    return cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int,
+               device: DeviceLike = "cuda") -> Dict:
+    """A zeroed decode cache (every leaf of ``cache_defs`` is zeros, so the
+    generator draws nothing)."""
+    return materialize(cache_defs(cfg, batch, s_max), torch.Generator(),
+                       device)
+
+
+def _decode_sublayer(cfg: ModelConfig, kind: Dict, p: Dict, c: Dict,
+                     x: torch.Tensor, position: torch.Tensor) -> torch.Tensor:
+    """One sublayer of one decode step; writes its cache ``c`` in place."""
+    if kind["attn"]:
+        h = L.rmsnorm(x, p["attn"]["norm"], cfg.norm_eps)
+        scales = ((c["k_scale"], c["v_scale"]) if cfg.kv_cache_int8
+                  else None)
+        h, _, _, _ = L.attention_decode(cfg, p["attn"], h, c["k"], c["v"],
+                                        position, is_local=kind["local"],
+                                        scales=scales)
+        x = x + h
+    elif kind["ssm"]:
+        h = L.rmsnorm(x, p["ssm"]["norm"], cfg.norm_eps)
+        h, nconv, nssm = L.ssd_decode(cfg, p["ssm"], h, c["conv"], c["ssm"])
+        c["conv"].copy_(nconv)
+        c["ssm"].copy_(nssm)
+        x = x + h
+    if kind["mlp"]:
+        h = L.rmsnorm(x, p["mlp"]["norm"], cfg.norm_eps)
+        x = x + L.mlp(cfg, p["mlp"], h)
+    return x
+
+
+def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
+                tokens: torch.Tensor, position: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One decode step. tokens: (B,1) int; position: (B,) int.
+
+    Returns (logits fp32 (B,V), cache); the cache is updated in place and
+    returned for symmetry with the reference."""
+    check_ported(cfg)
+    period = block_period(cfg)
+    x = params["embed"][tokens.to(torch.long)]
+    kinds = [sublayer_kind(cfg, j) for j in range(period)]
+    for r in range(num_repeats(cfg)):
+        blk, blk_cache = _at(params["blocks"], r), _at(cache, r)
+        for j in range(period):
+            x = _decode_sublayer(cfg, kinds[j], blk[f"blk{j}"],
+                                 blk_cache[f"blk{j}"], x, position)
+    return _unembed(cfg, params, x)[:, -1, :], cache

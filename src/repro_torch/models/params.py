@@ -6,10 +6,14 @@ reference model built from one config have the same shapes and the same
 init distributions. ``jax.random`` bits cannot be reproduced in torch, so
 tests carry a JAX tree across with ``from_jax`` instead.
 
-Layouts: the JAX package stores convs HWIO, depthwise weights (k,k,1,C) and
-dense weights (in,out); the port stores OIHW, (C,1,k,k) and (out,in). One
-permutation serves convs and depthwise weights alike (HWIO -> OIHW maps
-(k,k,1,C) to (C,1,k,k)), so the conversion needs no config.
+Layouts: for the XR nets the JAX package stores convs HWIO, depthwise
+weights (k,k,1,C) and dense weights (in,out); the port stores OIHW,
+(C,1,k,k) and (out,in). One permutation serves convs and depthwise weights
+alike (HWIO -> OIHW maps (k,k,1,C) to (C,1,k,k)), so ``from_jax``/``to_jax``
+need no config. The LM trees keep the JAX layout as it is (stacked
+``(R, in, out)`` weights used as ``x @ w``, the embedding ``(V, D)``), so
+``lm_from_jax``/``lm_to_jax`` copy leaves and change nothing but the type.
+bfloat16 crosses as its 16 bits, so every round trip is bit-exact.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ STATE_LEAVES = ("mean", "var")       # BN running stats: buffers, not params
 class ParamDef:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]    # logical axes, len == len(shape)
-    init: str = "normal"               # normal | zeros | ones | scaled
+    init: str = "normal"          # normal | zeros | ones | scaled | arange_neg
     dtype: str = "bfloat16"
     scale: float = 1.0                 # stddev multiplier for normal/scaled
 
@@ -69,6 +73,10 @@ def materialize(defs, generator: torch.Generator,
             t = torch.zeros(d.shape, dtype=dt)
         elif d.init == "ones":
             t = torch.ones(d.shape, dtype=dt)
+        elif d.init == "arange_neg":   # mamba A_log init: log(1..n)
+            t = torch.log(torch.arange(1, d.shape[-1] + 1,
+                                       dtype=torch.float32)).to(dt)
+            t = t * torch.ones(d.shape, dtype=dt)
         elif d.init in ("normal", "scaled"):
             fan_in = d.shape[0] if len(d.shape) > 1 else max(1, d.shape[-1])
             std = (d.scale / np.sqrt(fan_in) if d.init == "scaled"
@@ -81,13 +89,35 @@ def materialize(defs, generator: torch.Generator,
     return out
 
 
+def _tensor(a) -> torch.Tensor:
+    """A CPU tensor holding a copy of the numpy or JAX array ``a``; a
+    bfloat16 array crosses as its 16 bits (numpy has no bfloat16 of its own,
+    so ``torch.from_numpy`` refuses one)."""
+    if torch.is_tensor(a):
+        return a.detach().cpu().clone()
+    arr = np.array(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t``; bfloat16 becomes ``ml_dtypes.bfloat16`` (the
+    type JAX arrays convert to), bit for bit."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().copy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
 def _to_port(a) -> torch.Tensor:
-    t = a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
+    t = _tensor(a)
     if t.dim() == 4:
         return t.permute(3, 2, 0, 1).contiguous()      # HWIO -> OIHW
     if t.dim() == 2:
         return t.t().contiguous()                      # (in,out) -> (out,in)
-    return t.clone()
+    return t
 
 
 def _to_jax(t: torch.Tensor) -> np.ndarray:
@@ -96,7 +126,7 @@ def _to_jax(t: torch.Tensor) -> np.ndarray:
         t = t.permute(2, 3, 1, 0)                      # OIHW -> HWIO
     elif t.dim() == 2:
         t = t.t()
-    return np.ascontiguousarray(t.numpy())
+    return _array(t)
 
 
 def from_jax(params, state) -> Dict[str, torch.Tensor]:
@@ -118,3 +148,21 @@ def to_jax(state_dict: Mapping[str, torch.Tensor]) -> Tuple[Dict, Dict]:
         path = tuple(key.split("."))
         _set(state if path[-1] in STATE_LEAVES else params, path, _to_jax(t))
     return params, state
+
+
+def lm_from_jax(params) -> Dict:
+    """A JAX LM parameter (or cache) tree -> the same nesting of CPU
+    tensors, in the same layout and dtype."""
+    out: Dict = {}
+    for path, a in _leaves(params):
+        _set(out, path, _tensor(a))
+    return out
+
+
+def lm_to_jax(tree) -> Dict:
+    """Inverse of ``lm_from_jax``: the same nesting of numpy arrays, ready
+    for ``jnp.asarray``."""
+    out: Dict = {}
+    for path, t in _leaves(tree):
+        _set(out, path, _array(t))
+    return out

@@ -114,14 +114,26 @@ def _is_weight(key: str, t: torch.Tensor) -> bool:
         and t.dim() >= 2
 
 
-def quantize_params(params: Mapping[str, torch.Tensor], channel_axis: int = 0,
-                    bits: int = 8) -> Dict[str, torch.Tensor]:
-    """Fake-quantize every conv/dense weight of a ``<step>.<leaf>`` mapping
-    (a state dict) per output channel; other entries pass through."""
-    return {k: (fake_quant(v, minmax_scale(v, channel_axis, bits=bits),
-                           channel_axis, bits=bits)
-                if _is_weight(k, v) else v)
-            for k, v in params.items()}
+def quantize_params(params: Mapping, channel_axis: int = 0,
+                    bits: int = 8) -> Dict:
+    """Fake-quantize every conv/dense weight per channel along
+    ``channel_axis``; other entries pass through. ``params`` is a
+    ``<step>.<leaf>`` state dict (the XR nets, output channel on axis 0) or
+    a nested tree (the LM, reference layout: pass ``channel_axis=-1``, which
+    shares one scale per output column across the R stacked layers, as the
+    reference does). The weights are those the reference's ``_is_weight``
+    picks: ``w``, ``wq``/``wk``/``wv``/``wo`` and ``wi*``/``we*`` leaves of
+    rank >= 2 (not Mamba's ``in_proj``/``out_proj``, not the embedding)."""
+    out: Dict = {}
+    for k, v in params.items():
+        if isinstance(v, Mapping):
+            out[k] = quantize_params(v, channel_axis, bits)
+        elif _is_weight(k, v):
+            out[k] = fake_quant(v, minmax_scale(v, channel_axis, bits=bits),
+                                channel_axis, bits=bits)
+        else:
+            out[k] = v
+    return out
 
 
 def calibrate_acts(forward_fn, batches: Iterable, pct: Optional[float] = 99.9,

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import depthwise_conv, int8_matmul, ops, quantize, ref
+from repro_torch.kernels import (depthwise_conv, flash_attention, int8_matmul,
+                                 ops, quantize, ref, ssd_scan)
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +114,123 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
                                            device=cuda))
     with pytest.raises(ValueError):
         quantize.quantize_rows(torch.zeros(16, 8, device=cuda).t())
+
+
+# attention: Llama-3.2-1B's 32 query heads over 8 kv heads at D=64, ragged
+# S, every grouping from one kv head per query head (the Pallas kernel's
+# case) to one kv head for all. Each element is held to the plain version
+# in f32 on the same (upcast) inputs: within ATTN_TOL (the online softmax
+# sums in another order), and in bf16 also half a bf16 ulp (2^-8 of the
+# value) for the kernel's one rounding of its fp32 output.
+ATTN_TOL = 3e-5
+
+
+def _assert_attention_close(got, q, k, v, causal):
+    want = ref.flash_attention(q.float(), k.float(), v.float(), causal)
+    half_ulp = 2.0 ** -8 if got.dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want, rtol=ATTN_TOL + half_ulp,
+                               atol=ATTN_TOL)
+
+
+def _attn_inputs(g, B, H, K, S, D, dtype, device, seq_major=False):
+    def one(heads):
+        if seq_major:                     # the model's (B,S,H,D) projection
+            t = torch.randn(B, S, heads, D, generator=g)
+            return t.to(device, dtype).transpose(1, 2)
+        return torch.randn(B, heads, S, D, generator=g).to(device, dtype)
+    return one(H), one(K), one(K)
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 200, 1000, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain(cuda, S, dtype, causal):
+    q, k, v = _attn_inputs(_gen(S), 2, 32, 8, S, 64, dtype, cuda,
+                           seq_major=True)
+    before = flash_attention.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_attention_close(got, q, k, v, causal)
+
+
+@pytest.mark.parametrize("H,K", [(4, 4), (8, 2), (8, 1)])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_heads_and_dims(cuda, H, K, D, dtype):
+    S = 130
+    q, k, v = _attn_inputs(_gen(H * D + K), 3, H, K, S, D, dtype, cuda)
+    for causal in (True, False):
+        _assert_attention_close(ops.flash_attention(q, k, v, causal), q, k,
+                                v, causal)
+
+
+def test_flash_attention_kernel_causal_rows_see_only_their_past(cuda):
+    """Changing the keys and values after position t leaves rows <= t."""
+    q, k, v = _attn_inputs(_gen(7), 1, 4, 4, 300, 64, torch.float32, cuda)
+    a = ops.flash_attention(q, k, v, True)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 100:] += 5.0
+    v2[:, :, 100:] -= 5.0
+    b = ops.flash_attention(q, k2, v2, True)
+    assert torch.equal(a[:, :, :100], b[:, :, :100])
+    assert not torch.equal(a[:, :, 100:], b[:, :, 100:])
+
+
+@pytest.mark.parametrize("B,NC,H,P,N", [(2, 8, 64, 64, 128), (1, 1, 3, 5, 7),
+                                        (2, 9, 4, 33, 17), (3, 4, 2, 64, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_bit_equal(cuda, B, NC, H, P, N, dtype):
+    """(2,8,64,64,128) is a Mamba-2-1.3B layer at B=2, S=2048."""
+    g = _gen(B * NC + H * P + N)
+    st = torch.randn(B, NC, H, P, N, generator=g).to(cuda, dtype)
+    dc = torch.rand(B, NC, H, generator=g).to(cuda)
+    before = ssd_scan.ssd_chunk_scan.launches
+    got = ops.ssd_chunk_scan(st, dc)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_chunk_scan.launches == before + 1
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, ref.ssd_chunk_scan(st, dc))
+
+
+def test_ssd_scan_kernel_strided_inputs(cuda):
+    """The model's chunk states come out of an einsum in any layout and
+    its decay is a transposed (B,H,NC) tensor: read through strides."""
+    g = _gen(3)
+    st = torch.randn(2, 64, 8, 32, 16, generator=g).to(cuda)   # (B,H,NC,N,P)
+    st = st.permute(0, 2, 1, 4, 3)                             # (B,NC,H,P,N)
+    dc = torch.rand(2, 64, 8, generator=g).to(cuda).transpose(1, 2)
+    got = ops.ssd_chunk_scan(st, dc)
+    assert torch.equal(got, ref.ssd_chunk_scan(st.contiguous(),
+                                               dc.contiguous()))
+
+
+def test_lm_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.randn(1, 4, 16, 64, device=cuda)
+    with pytest.raises(ValueError):          # head dim 48
+        flash_attention.flash_attention(q[..., :48], q[..., :48], q[..., :48])
+    q128 = torch.randn(1, 4, 16, 128, device=cuda)
+    with pytest.raises(ValueError):          # head dim 128: no instance
+        flash_attention.flash_attention(q128, q128, q128)
+    with pytest.raises(ValueError):          # 3 kv heads for 4 query heads
+        flash_attention.flash_attention(q, q[:, :3], q[:, :3])
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):          # head dim not contiguous
+        t = torch.randn(1, 4, 64, 16, device=cuda).transpose(-1, -2)
+        flash_attention.flash_attention(q, t, t)
+    with pytest.raises(ValueError):          # mixed devices
+        flash_attention.flash_attention(q, q.cpu(), q)
+    st = torch.randn(1, 2, 3, 4, 5, device=cuda)
+    with pytest.raises(ValueError):
+        ssd_scan.ssd_chunk_scan(st, torch.rand(1, 3, 2, device=cuda))
+    with pytest.raises(TypeError):
+        ssd_scan.ssd_chunk_scan(st.half(), torch.rand(1, 2, 3, device=cuda))
+    with pytest.raises(TypeError):           # decay is float32 only
+        ssd_scan.ssd_chunk_scan(st, torch.rand(1, 2, 3, device=cuda,
+                                               dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        ssd_scan.ssd_chunk_scan(st, torch.rand(1, 2, 3))

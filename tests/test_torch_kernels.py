@@ -184,6 +184,10 @@ def test_cpu_path_launches_no_kernel(rng):
     ops.int8_matmul(torch.zeros((2, 2), dtype=torch.int8),
                     torch.zeros((2, 2), dtype=torch.int8),
                     torch.ones(2), torch.ones(2))
+    q = torch.randn(1, 2, 5, 32)
+    ops.flash_attention(q, q, q)
+    ops.ssd_chunk_scan(torch.randn(1, 2, 3, 4, 5), torch.rand(1, 2, 3))
     assert ops.launches() == before
     assert set(before) == {"depthwise_conv3x3", "int8_matmul",
-                           "quantize_rows"}
+                           "quantize_rows", "flash_attention",
+                           "ssd_chunk_scan"}

@@ -60,9 +60,11 @@ def test_entry_points_refuse_to_run_without_a_card():
 def test_unported_architectures_raise_keyerror():
     from repro_torch.configs import get_config, get_smoke
     assert get_config("detnet").name == "detnet"
+    assert get_config("llama3.2-1b").name == "llama3.2-1b"
     for get in (get_config, get_smoke):
-        with pytest.raises(KeyError, match="not ported"):
-            get("llama3.2-1b")
+        for arch in ("gemma2-9b", "mixtral-8x7b", "whisper-small"):
+            with pytest.raises(KeyError, match="not ported"):
+                get(arch)
 
 
 def _run_smoke(cwd: Path):
