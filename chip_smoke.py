@@ -20,8 +20,10 @@ with the kernels' launch counts set to 0 just before it and read just after:
 
 Before each path every kernel of it is held against its plain PyTorch
 version at the path's shapes; after it each kernel is timed beside its plain
-version, a PyTorch library call for the same function and the card's bound.
-Any failed phase exits non-zero.
+version, a PyTorch library call for the same function and the card's bound:
+CUDA events over 50 back-to-back calls, and device time from torch.profiler
+windows whose capture is held to the launches they made (``device_us``). A
+reading under its bound fails the run. Any failed phase exits non-zero.
 
 Standard output ends with the card's `nvidia-smi` name and power limit, one
 JSON line with the kernels' numbers, and the result line
@@ -29,6 +31,7 @@ JSON line with the kernels' numbers, and the result line
 build/chip_smoke.json.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -42,6 +45,11 @@ SEED = 20261017
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 FP32_OPS_PER_S = 67e12           # CUDA cores, outside the tensor cores
+
+# CUDA-event timing: back-to-back calls per reading, so that at the main
+# path's larger shapes a call's device time exceeds the host's cost to
+# launch it
+EVENT_CALLS = 50
 
 # tolerances against the plain versions (reasons in CHANGES.md/PERF.md)
 DW_TOL = {"float32": 1e-5, "bfloat16": 5e-2}    # FMA contraction, bf16 store
@@ -61,10 +69,11 @@ LM_B, LM_S = 2, 2048             # prefill batch and sequence
 LM_RAGGED_S = 1000               # not a multiple of the kernel's 64-row tile
 # flash kernel vs its plain version in f32 on the same (upcast) inputs,
 # element by element: FLASH_TOL for the online softmax's other sum order
-# (times 1 + |value|), and in bf16 half a bf16 ulp (2^-8 of the value) for
-# the kernel's one rounding of its fp32 output
+# (times 1 + |value|); in bf16 also 2^-8 (|value| + A(q, k, |v|)) for the
+# three roundings to bf16 (the probabilities before the PV product, as the
+# model's reference rounds them, their denominator, the output), A the plain
+# f32 attention applied to |v| (ref.flash_bf16_limit)
 FLASH_TOL = 3e-5
-HALF_ULP = {"float32": 0.0, "bfloat16": 2.0 ** -8}
 SERVE_BATCH, SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_SEQ = 4, 8, 16, 128
 # Served tokens against the teacher-forced forward over prompt + served
 # tokens. The forward sees at every position what the server saw, so each
@@ -114,8 +123,10 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def median_ms(fn, *args, reps=5, inner=10):
-    """Median over ``reps`` of the CUDA-event time of ``inner`` calls."""
+def median_ms(fn, *args, reps=5, inner=EVENT_CALLS):
+    """Median over ``reps`` of the CUDA-event time per call of ``inner``
+    back-to-back calls. Where a call's device time is under the host's cost
+    to launch it, this measures the host; ``device_us`` does not."""
     import torch
     for _ in range(3):
         fn(*args)
@@ -132,37 +143,141 @@ def median_ms(fn, *args, reps=5, inner=10):
     return statistics.median(times)
 
 
-def device_us(calls, reps=5):
-    """Device-busy microseconds per pass over ``calls`` (sum over every
-    kernel, copy and fill that ran), and by kernel name. A loop of small
-    calls can be bound by the host (Python wrapper, dispatch), and then
-    event times measure the host; the profiler's device times do not.
-    Kernel names carry the CUDA function names."""
+# Profiler windows are padded with spin kernels of PAD_CYCLES clock cycles
+# each (torch.cuda._sleep, device name "spin_kernel", ~0.6 ms), PAD_FRONT
+# before the work and PAD_BACK after it, left out of every sum: the
+# profiler drops the device events at a window's start, more the older the
+# process (PERF.md section 7)
+PAD_FRONT, PAD_BACK, PAD_CYCLES = 16, 4, 1_000_000
+PAD_NAME = "spin_kernel"
+
+# host-side CUDA calls that each put one operation (kernel, copy or fill)
+# on the device, as the profiler names them
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
+               "cudaMemsetAsync", "cudaMemcpyAsync", "cudaMemcpy")
+
+
+def device_us(calls, reps=5, expect=None, attempts=3):
+    """Device time per pass over ``calls``, from the profiler: the sum over
+    every kernel, copy and fill that ran (busy), and by name.
+
+    The profiler can drop device events, so the window is padded with spin
+    kernels (PAD_FRONT, PAD_BACK), and its capture is held to the launches
+    the window made before anything is summed: the device events other than
+    the pads must number the host-side launch calls (LAUNCH_APIS) the
+    profiler saw less the pads', every name must appear a whole number of
+    times per pass, and each name containing a key of ``expect`` (a kernel
+    of this repository, counted by its wrapper) exactly reps x expect[key]
+    times. capture["per_call_us"] has the median over passes of each call's
+    device time where every call ran exactly one operation.
+    If the capture falls short, busy is None and by_name empty: "not
+    measured", never a partial sum divided by ``reps``. A short window is
+    profiled again, up to ``attempts`` windows in all. Returns (busy,
+    by_name, capture), capture giving the counts checked."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for fn, args in calls:
         fn(*args)
     torch.cuda.synchronize()
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PAD_FRONT):
+                torch.cuda._sleep(PAD_CYCLES)
+            for _ in range(reps):
+                for fn, args in calls:
+                    fn(*args)
+            for _ in range(PAD_BACK):
+                torch.cuda._sleep(PAD_CYCLES)
+            torch.cuda.synchronize()
+        busy, by_name, capture = _capture(prof, reps, expect, len(calls))
+        capture["attempt"] = attempt
+        if busy is not None:
+            break
+    return busy, by_name, capture
+
+
+def edge_loss(t0, n=400, cycles=10_000):
+    """The profiler's loss at a window's start, unpadded: a window of ``n``
+    spin kernels of ``cycles`` clock cycles each; returns the seconds since
+    ``t0``, the spins captured and the device microseconds lost."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for fn, args in calls:
-                fn(*args)
+        for _ in range(n):
+            torch.cuda._sleep(cycles)
         torch.cuda.synchronize()
-    by_name = {}
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and PAD_NAME in e.name]
+    lost = (n - len(us)) * statistics.median(us) if us else None
+    return {"at_s": time.perf_counter() - t0, "captured": len(us), "of": n,
+            "lost_us": lost}
+
+
+def _capture(prof, reps, expect, n_calls):
+    """Sums of one profiler window and whether its capture is whole (see
+    ``device_us``)."""
+    from torch.autograd import DeviceType
+    us, count, launched, pads, ops = {}, {}, -PAD_FRONT - PAD_BACK, [], []
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / reps)
-    return sum(by_name.values()), by_name
+        if e.device_type == DeviceType.CUDA and PAD_NAME in e.name:
+            pads.append(e.time_range.start)
+        elif e.device_type == DeviceType.CUDA:
+            us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
+            count[e.name] = count.get(e.name, 0) + 1
+            ops.append((e.time_range.start, e.time_range.elapsed_us()))
+        elif e.name in LAUNCH_APIS:
+            launched += 1
+    first = min((t for t, _ in ops), default=0)
+    front = sum(t < first for t in pads)
+    short = []
+    if sum(count.values()) < launched:
+        short.append(f"{sum(count.values())} device events for {launched} "
+                     "launch calls")
+    short += [f"{n[:60]}: {c} events in {reps} passes"
+              for n, c in count.items() if c % reps]
+    for key, per_pass in (expect or {}).items():
+        got = sum(c for n, c in count.items() if key in n)
+        if got != reps * per_pass:
+            short.append(f"{key}: {got} events, launched {reps * per_pass}")
+    capture = {"reps": reps, "launch_calls": launched,
+               "device_events": sum(count.values()),
+               "pads_seen_front": front, "pads_seen_back": len(pads) - front,
+               "short": short}
+    if short:
+        print(f"    profiler capture short: {'; '.join(short)} (spin pads "
+              f"seen: {front} of {PAD_FRONT} before, {len(pads) - front} of "
+              f"{PAD_BACK} after)")
+        return None, {}, capture
+    if len(ops) == reps * n_calls:       # one operation per call
+        ops.sort()
+        capture["per_call_us"] = [statistics.median(
+            ops[r * n_calls + i][1] for r in range(reps))
+            for i in range(n_calls)]
+    by_name = {n: t / reps for n, t in us.items()}
+    return sum(by_name.values()), by_name, capture
 
 
-def wall_profile(fn, reps=3):
+def check_bound(what, readings, bound_ms):
+    """Fail the run if a reading (ms; None = not measured) is under the
+    least time the card could take: no card beats its bound, so such a
+    reading is a measurement fault and is never written down."""
+    for label, ms in readings.items():
+        if ms is not None:
+            check(ms >= bound_ms, f"{what} {label} {ms} ms is under its bound "
+                  f"{bound_ms} ms: a faulty reading")
+
+
+def wall_profile(fn, reps=3, expect=None):
     """Wall time of ``fn()`` (median of ``reps`` after a warm-up, host clock
     around a synchronize, no profiler), the device-busy time in one call,
     the idle share and the top kernels by device time; and the device
-    microseconds of that call by kernel name."""
+    microseconds of that call by kernel name (empty if the profiler's
+    capture fell short)."""
     import torch
     walls = []
     for _ in range(reps + 1):
@@ -172,11 +287,12 @@ def wall_profile(fn, reps=3):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) * 1e3)
     wall = statistics.median(walls[1:])
-    busy, by_name = device_us([(fn, ())], reps=1)
+    busy, by_name, capture = device_us([(fn, ())], reps=1, expect=expect)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"wall_ms": wall, "device_busy_ms": busy / 1e3,
-            "idle_share": 1 - busy / 1e3 / wall,
-            "top_kernels_us": top}, by_name
+    return {"wall_ms": wall,
+            "device_busy_ms": None if busy is None else busy / 1e3,
+            "idle_share": None if busy is None else 1 - busy / 1e3 / wall,
+            "top_kernels_us": top, "capture": capture}, by_name
 
 
 def lm_slice(dev, gen, report):
@@ -222,8 +338,11 @@ def lm_slice(dev, gen, report):
                                                vt.float(), causal)
                     torch.cuda.synchronize()
                     e = max_err(got, want)
-                    lim = FLASH_TOL + (FLASH_TOL + HALF_ULP[
-                        str(dt)[6:]]) * want.abs()
+                    if dt == torch.bfloat16:
+                        lim = ref.flash_bf16_limit(want, qt, kt, vt, causal,
+                                                   FLASH_TOL)
+                    else:
+                        lim = FLASH_TOL * (1 + want.abs())
                     over = float(((got.float() - want).abs() - lim).max())
                     check(got.dtype == dt and over <= 0,
                           f"flash_attention S={S} K={K} {dt} causal="
@@ -248,9 +367,9 @@ def lm_slice(dev, gen, report):
         check(torch.equal(got, want), f"ssd_chunk_scan {scan_shape} {dt}: "
               f"not bit-equal (max err {err['ssd_chunk_scan']})")
     print(f"LM kernels vs plain: {n_flash} flash_attention cases within "
-          f"{FLASH_TOL} (1 + |value|), + half a bf16 ulp in bf16, element "
-          f"by element; ssd_chunk_scan {scan_shape} bit-equal in f32 and "
-          "bf16")
+          f"{FLASH_TOL} (1 + |value|), + 2^-8 (|value| + A(q,k,|v|)) in "
+          f"bf16, element by element; ssd_chunk_scan {scan_shape} bit-equal "
+          "in f32 and bf16")
 
     # -- LM 2. the main path: prefill forwards and the server, counted -----
     models = {}
@@ -466,28 +585,34 @@ def lm_slice(dev, gen, report):
                 "bf16_row_err_card": e_card, "bf16_row_err_cpu": e_cpu}
 
     # -- LM 5. times: forwards, kernel, plain version, library call, bound -
-    # The kernels' device time per launch comes from the forwards' profile:
-    # profiled alone, their ctypes launches have shown no device time.
+    # Each kernel's device time per launch on the main path comes from the
+    # forward's profile, its capture held to the launches the forward made.
+    per_fwd = {"flash_attention": n_flash_fwd, "ssd_chunk_scan": n_scan_fwd}
+    cnames = {"flash_attention": "flash_tc_kernel",     # the bf16 kernel
+              "ssd_chunk_scan": "ssd_scan_kernel"}
+    fwd_kernel = {"llama3.2-1b": "flash_attention",
+                  "mamba2-1.3b": "ssd_chunk_scan"}
     kernel_us = {}
     for arch, (cfg, params, tok) in models.items():
+        name = fwd_kernel[arch]
         fp, by_name = wall_profile(
-            lambda c=cfg, p=params, t=tok: lm.forward(c, p, t))
+            lambda c=cfg, p=params, t=tok: lm.forward(c, p, t),
+            expect={cnames[name]: per_fwd[name]})
         report[f"forward {arch}"] = fp
+        busy = fp["device_busy_ms"]
         print(f"  forward {arch} B={LM_B} S={LM_S}: wall {fp['wall_ms']:.3f}"
-              f" ms, device busy {fp['device_busy_ms']:.3f} ms, idle share "
-              f"{fp['idle_share']:.3f}")
+              " ms, device busy " + ("not measured" if busy is None else
+                                     f"{busy:.3f} ms, idle share "
+                                     f"{fp['idle_share']:.3f}"))
         for kname, us in fp["top_kernels_us"]:
             print(f"    {us:9.1f} us  {kname[:90]}")
-        for cname, name in (("flash_kernel", "flash_attention"),
-                            ("ssd_scan_kernel", "ssd_chunk_scan")):
-            us = sum(v for k, v in by_name.items() if cname in k)
-            if us:
-                kernel_us[name] = us / lm_launches[name]
-                print(f"    {name}: {kernel_us[name]:.1f} us per launch, "
-                      f"{100 * us / 1e3 / fp['device_busy_ms']:.1f}% of the "
-                      "forward's device time")
-    check(set(kernel_us) == {"flash_attention", "ssd_chunk_scan"},
-          f"the forwards' profile shows no time for {kernel_us}")
+        us = sum(v for k, v in by_name.items() if cnames[name] in k)
+        kernel_us[name] = us / per_fwd[name] if by_name else None
+        if by_name:
+            fp["kernel_share"] = us / 1e3 / busy
+            print(f"    {name}: {kernel_us[name]:.1f} us per launch, "
+                  f"{100 * fp['kernel_share']:.1f}% of the forward's device "
+                  "time")
     q, k, v = (torch.randn(LM_B, LM_S, h, D, generator=gen).to(
         dev, torch.bfloat16).transpose(1, 2) for h in (H, Kv, Kv))
     pairs = LM_B * H * LM_S * (LM_S + 1) // 2       # causal (q, k) pairs
@@ -515,28 +640,31 @@ def lm_slice(dev, gen, report):
     check(max_err(segsum_form(st, dc), ops.ssd_chunk_scan(st, dc)) <= 1e-3,
           "ssd_chunk_scan disagrees with the segsum form")
 
+    def ms(busy):
+        return None if busy is None else busy / 1e3
+
     times = {}
     for name, fns, args in (
             ("flash_attention", (ops.flash_attention, ref.flash_attention,
                                  sdpa), (q, k, v)),
             ("ssd_chunk_scan", (ops.ssd_chunk_scan, ref.ssd_chunk_scan,
-                                None), (st, dc))):
+                                segsum_form), (st, dc))):
         t = {}
         for label, fn in zip(("ms", "plain_ms", "library_ms"), fns):
-            if fn is None:
-                t[label] = t[label.replace("ms", "device_ms")] = None
-                continue
             t[label] = median_ms(fn, *args)
-            busy, by_name = device_us([(fn, args)])
-            t[label.replace("ms", "device_ms")] = busy / 1e3
-            if label == "ms":
-                print(f"    profiled alone, {name} shows {len(by_name)} "
-                      f"device entries, {busy:.1f} us")
-        t["device_ms"] = kernel_us[name] / 1e3     # per launch, main path
+            t[label.replace("ms", "alone_device_ms")] = ms(device_us(
+                [(fn, args)], expect={cnames[name]: 1} if label == "ms"
+                else None)[0])
+        t["device_ms"] = ms(kernel_us[name])       # per launch, main path
+        t["plain_device_ms"] = t.pop("plain_alone_device_ms")
+        t["library_device_ms"] = t.pop("library_alone_device_ms")
         times[name] = t
-    times["ssd_chunk_scan"]["segsum_ms"] = median_ms(segsum_form, st, dc)
-    times["ssd_chunk_scan"]["segsum_device_ms"] = device_us(
-        [(segsum_form, (st, dc))])[0] / 1e3
+    # the scan has no library call; its row shows the reference model's
+    # segsum-einsum form beside it, under its own keys
+    scan = times["ssd_chunk_scan"]
+    scan["segsum_ms"] = scan.pop("library_ms")
+    scan["segsum_device_ms"] = scan.pop("library_device_ms")
+    scan["library_ms"] = scan["library_device_ms"] = None
     times["flash_attention"].update(
         bound_ms=max(flash_ops_ms, flash_bytes_ms),
         bound_by="operations" if flash_ops_ms >= flash_bytes_ms else "bytes",
@@ -546,11 +674,13 @@ def lm_slice(dev, gen, report):
         bound_by="operations" if scan_ops_ms >= scan_bytes_ms else "bytes",
         ops_ms=scan_ops_ms, bytes_ms=scan_bytes_ms)
     for name, t in times.items():
+        check_bound(name, {k: v for k, v in t.items() if k.endswith("ms")
+                           and k not in ("bound_ms", "ops_ms", "bytes_ms")},
+                    t["bound_ms"])
         print(f"  time {name}: " + ", ".join(
             f"{k} {v:.5g}" if isinstance(v, float) else f"{k} {v}"
             for k, v in t.items()))
     report["lm_times"] = times
-
 
     meta = {"flash_attention": ("flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:65"),
@@ -568,7 +698,8 @@ def lm_slice(dev, gen, report):
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"],
             "plain_device_ms": t["plain_device_ms"],
-            "library_device_ms": t["library_device_ms"]})
+            "library_device_ms": t["library_device_ms"],
+            "alone_device_ms": t["alone_device_ms"]})
     for k in ("segsum_ms", "segsum_device_ms"):
         entries[1][k] = times["ssd_chunk_scan"][k]
     return entries
@@ -621,12 +752,17 @@ def main() -> None:
     secs = _build.build()
     print(f"build: {secs:.1f} s for {len(_build.BUILD_LOG)} nvcc processes "
           f"in parallel ({_build.BUILD_DIR})")
+    spills = []
     for name, log in sorted(_build.BUILD_LOG.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+            if re.search(r"\b[1-9]\d* bytes spill", line):
+                spills.append(f"{name}: {line.strip()}")
+    check(not spills, f"register spills: {spills}")
     report = {"card": smi, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "build_s": secs}
+              "cuda": torch.version.cuda, "build_s": secs,
+              "profiler_edge_loss": [edge_loss(t0)]}
 
     # -- main-path shapes --------------------------------------------------
     det_cfg, eds_cfg = get_config("detnet"), get_config("edsnet")
@@ -889,6 +1025,12 @@ def main() -> None:
                 "int8_matmul": (ops.int8_matmul, ref.int8_matmul,
                                 int_mm_scaled),
                 "quantize_rows": (ops.quantize_rows, ref.quantize_rows, None)}
+    # device time of one main-path pass of each kernel (depthwise: the 26
+    # steps; the others: their calibration corner), its capture held to the
+    # launches the kernel's wrapper made
+    cnames = {"depthwise_conv3x3": "dw3x3_kernel",
+              "int8_matmul": "int8_mm_kernel",
+              "quantize_rows": "quantize_rows_kernel"}
     device = {}
     for name, fns in variants.items():
         device[name] = {}
@@ -896,47 +1038,54 @@ def main() -> None:
             if fn is None:
                 device[name][label] = None
                 continue
-            busy, by_name = device_us([(fn, a) for a in dev_inputs[name]])
-            device[name][label] = busy / 1e3 if by_name else None
+            busy, _, capture = device_us(
+                [(fn, a) for a in dev_inputs[name]],
+                expect={cnames[name]: len(dev_inputs[name])}
+                if label == "ms" else None)
+            device[name][label] = None if busy is None else busy / 1e3
+            per_call = capture.get("per_call_us")
+            if name == "depthwise_conv3x3" and per_call:
+                for r, us in zip(rows[name], per_call):
+                    r[label.replace("ms", "device_ms")] = us / 1e3
         print(f"  device time per main-path pass {name}: {device[name]}")
     report["device_ms"] = device
 
-    def forward_profile(net, x, scales):
-        """Wall time of one INT8 forward (median of 5, no profiler), the
-        device-busy time in it, the idle share and the top kernels."""
-        walls = []
-        for _ in range(6):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            ptq.forward_int8(net, x, act_scales=scales)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t) * 1e3)
-        wall = statistics.median(walls[1:])
-        busy, by_name = device_us(
-            [(lambda: ptq.forward_int8(net, x, act_scales=scales), ())],
-            reps=3)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        return {"wall_ms": wall, "device_busy_ms": busy / 1e3,
-                "idle_share": 1 - busy / 1e3 / wall,
-                "top_kernels_us": top}
-
     for label, net, x, sc in (("DetNet b8", det, det_img, det_scales),
                               ("EDSNet b2", eds, eds_img, eds_scales)):
-        fp = forward_profile(net, x, sc)
+        fp, by_name = wall_profile(
+            lambda n=net, x=x, sc=sc: ptq.forward_int8(n, x, act_scales=sc),
+            reps=5, expect={"dw3x3_kernel": 13})
         report[f"forward {label}"] = fp
+        busy = fp["device_busy_ms"]
         print(f"  forward_int8 {label}: wall {fp['wall_ms']:.3f} ms, device "
-              f"busy {fp['device_busy_ms']:.3f} ms, idle share "
-              f"{fp['idle_share']:.3f}")
+              "busy " + ("not measured" if busy is None else
+                         f"{busy:.3f} ms, idle share {fp['idle_share']:.3f}"))
         for kname, us in fp["top_kernels_us"]:
             print(f"    {us:9.1f} us  {kname[:90]}")
+        if by_name:
+            us = sum(v for k, v in by_name.items() if "dw3x3_kernel" in k)
+            fp["depthwise_us"] = us
+            fp["depthwise_share"] = us / 1e3 / busy
+            print(f"    depthwise_conv3x3: {us:.1f} us in 13 launches, "
+                  f"{100 * fp['depthwise_share']:.1f}% of the forward's "
+                  "device time")
 
     for name, rs in rows.items():
         for r in rs:
+            check_bound(f"{name} {r['shape']}", {
+                k: r.get(k) for k in ("ms", "plain_ms", "library_ms",
+                                      "device_ms", "library_device_ms")},
+                r["bound_ms"])
             lib = ("-" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f}")
+            dev_us = "".join(
+                f"  {k[:-10] or 'kernel'} device {1e3 * r[k]:.2f} us"
+                for k in ("device_ms", "plain_device_ms",
+                          "library_device_ms") if r.get(k) is not None)
             print(f"  time {name:17s} {str(r['shape']):22s} kernel "
                   f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f}  library "
-                  f"{lib}  bound {r['bound_ms']:.5f} ({r['bound_by']})")
+                  f"{lib}  bound {r['bound_ms']:.5f} ({r['bound_by']})"
+                  + dev_us)
     report["times"] = rows
 
     # -- slice 2: the LM path (LM 1-5 in lm_slice) --------------------------
@@ -967,6 +1116,11 @@ def main() -> None:
     kernels = []
     for name, (src, replaces) in meta.items():
         r = main_rows[name]
+        check_bound(name, {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                           "library_ms": r["library_ms"],
+                           **{f"device {k}": v
+                              for k, v in device[name].items()}},
+                    r["bound_ms"])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -979,6 +1133,10 @@ def main() -> None:
             "library_device_ms": device[name]["library_ms"]})
     kernels += lm_entries
     report["kernels"] = kernels
+    report["profiler_edge_loss"].append(edge_loss(t0))
+    print("profiler loss at an unpadded window's start: " + "; ".join(
+        f"{e['captured']} of {e['of']} spin kernels captured at "
+        f"{e['at_s']:.0f} s" for e in report["profiler_edge_loss"]))
     report["wall_s"] = time.perf_counter() - t0
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps(report,

@@ -8,24 +8,29 @@
 //   against one element read and one written (2.25 FLOP/byte in f32, 4.5 in
 //   bf16), far below the card's ~20 FLOP/byte fp32 ridge, so the floor is
 //   (input + output + weights) / 3.35 TB/s.
-// What the design does about it: every input element is read from device
-//   memory about once. A block owns TH rows x TW columns x 32 channels of the
-//   output; it stages the (TH+2) x (TW+2) x 32 halo tile in shared memory
-//   (SAME padding by bounds checks: out-of-image taps load 0, no padded
-//   copy), so the 9 taps of its outputs re-read shared memory, not DRAM.
-//   Threads map to channels (threadIdx.x), so a warp loads 32 neighbouring
-//   channels of one pixel: one 128-byte (f32) or 64-byte (bf16) coalesced
-//   transaction, on any C (a ragged last channel tile is masked) and any H,
-//   W (ragged spatial tiles are masked) -- no tiling contract.
+// What the design does about it: no shared memory and few instructions per
+//   byte. Each thread owns 4 neighbouring channels (one 16-byte load in f32,
+//   8-byte in bf16) of one output column and walks TH output rows down it:
+//   each input row (columns w-1..w+1) is loaded once and fed to the up to 3
+//   outputs that use it, so each new output row costs 3 loads, not 9, and
+//   the 36 weights of its 4 channels stay in registers. Neighbouring
+//   threads take neighbouring channel groups, then neighbouring columns, so
+//   a warp's loads are contiguous in NHWC memory; the column neighbours'
+//   shared inputs come from L1. SAME padding by bounds checks (out-of-image
+//   taps load 0, no padded copy).
+// Tiles per layer (the wrapper picks them from (H, W, C), see
+//   kernels/depthwise_conv.py): a block holds `cg_blk` channel groups x
+//   `upb` output columns, where a "column" (unit) is one (image, row strip,
+//   column) of the whole batch, so small maps (4x4, 8x8) fill whole blocks
+//   with many images' columns instead of idling in a fixed spatial tile.
+//   Channel groups past C (C not a multiple of 4 is masked element by
+//   element, no separate kernel), columns past the batch and rows past H
+//   are the only idle threads.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int TC = 32;  // channels per block: one warp across channels
-constexpr int TH = 8;   // output rows per block: one warp per row
-constexpr int TW = 16;  // output columns per block, walked by each thread
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -40,72 +45,207 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
   return __float2bfloat16(v);  // round to nearest even, as torch's cast
 }
 
+// 4 channels of one pixel in one load: float4 (f32) or 4 x bf16 (uint2)
+template <typename T> struct Vec4;
+template <> struct Vec4<float> {
+  using type = float4;
+  __device__ __forceinline__ static void unpack(const type& u, float (&v)[4]) {
+    v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+  }
+  __device__ __forceinline__ static type pack(const float (&v)[4]) {
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <> struct Vec4<__nv_bfloat16> {
+  using type = uint2;
+  __device__ __forceinline__ static void unpack(const type& u, float (&v)[4]) {
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+    v[0] = __low2float(a); v[1] = __high2float(a);
+    v[2] = __low2float(b); v[3] = __high2float(b);
+  }
+  __device__ __forceinline__ static type pack(const float (&v)[4]) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    return make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                      *reinterpret_cast<const uint32_t*>(&b));
+  }
+};
+
+// Channels c..c+3 of the pixel at element offset `off` (0 outside the
+// image, and past C when C is not a multiple of 4).
+template <typename T, bool VEC>
+__device__ __forceinline__ void load4(const T* __restrict__ x, int64_t off,
+                                      int c, int C, bool in, float (&v)[4]) {
+  if (VEC) {
+    if (in) {
+      Vec4<T>::unpack(*reinterpret_cast<const typename Vec4<T>::type*>(
+                          x + off + c), v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = in && c + e < C ? to_f32(x[off + c + e]) : 0.f;
+  }
+}
+
+// Input row hh, columns col-1..col+1, channels c..c+3, into row[s][e].
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_row(const T* __restrict__ x, int64_t img,
+                                         int hh, int col, int H, int W,
+                                         int C, int c, float (&row)[3][4]) {
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const int ww = col - 1 + s;
+    const bool in = hh >= 0 && hh < H && ww >= 0 && ww < W;
+    load4<T, VEC>(x, img + (static_cast<int64_t>(hh) * W + ww) * C, c, C, in,
+                  row[s]);
+  }
+}
+
 // x, y: (B, H, W, C) contiguous; w: (C, 3, 3) contiguous (the model's
 // (C, 1, 3, 3) depthwise weight as it is stored, so no transposed copy).
-template <typename T>
-__global__ void __launch_bounds__(TC * TH)
+// VEC: C % 4 == 0 (vector loads and stores); TH: output rows per thread.
+template <typename T, bool VEC, int TH>
+// At most 128 threads (the plan's MAX_THREADS) and 128 registers a thread,
+// so 4 blocks fit an SM: a cap of 80 or 64 registers spills, and larger
+// blocks fit fewer times (both measured slower on the H100).
+__global__ void __launch_bounds__(128, 4)
 dw3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
-             T* __restrict__ y, int H, int W, int C, int tiles_w) {
-  __shared__ float tile[TH + 2][TW + 2][TC];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c = blockIdx.x * TC + tx;
-  const int h0 = (blockIdx.y / tiles_w) * TH;
-  const int w0 = (blockIdx.y % tiles_w) * TW;
-  const bool c_ok = c < C;
-  const int64_t img = static_cast<int64_t>(blockIdx.z) * H * W * C;
+             T* __restrict__ y, int H, int W, int C, int cg_blk, int upb,
+             int n_strips, int n_units) {
+  const int tid = threadIdx.x;
+  const int c = (blockIdx.y * cg_blk + tid % cg_blk) * 4;
+  const int unit = blockIdx.x * upb + tid / cg_blk;
+  if (c >= C || unit >= n_units) return;
+  const int col = unit % W;
+  const int strip = (unit / W) % n_strips;
+  const int b = unit / W / n_strips;
+  const int h0 = strip * TH;
 
-  for (int p = ty; p < (TH + 2) * (TW + 2); p += TH) {
-    const int r = p / (TW + 2), s = p % (TW + 2);
-    const int hh = h0 + r - 1, ww = w0 + s - 1;
-    float v = 0.f;
-    if (c_ok && hh >= 0 && hh < H && ww >= 0 && ww < W)
-      v = to_f32(x[img + (static_cast<int64_t>(hh) * W + ww) * C + c]);
-    tile[r][s][tx] = v;
-  }
-  float wr[9];
+  // the 4 channels' 36 weights are contiguous: 9 vector loads when VEC
+  float wr[9][4];
+  if (VEC) {
 #pragma unroll
-  for (int k = 0; k < 9; ++k) wr[k] = c_ok ? to_f32(w[c * 9 + k]) : 0.f;
-  __syncthreads();
+    for (int i = 0; i < 9; ++i) {
+      float v[4];
+      Vec4<T>::unpack(*reinterpret_cast<const typename Vec4<T>::type*>(
+                          w + c * 9 + 4 * i), v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wr[(4 * i + j) % 9][(4 * i + j) / 9] = v[j];
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        wr[t][e] = c + e < C ? to_f32(w[(c + e) * 9 + t]) : 0.f;
+  }
 
-  const int h = h0 + ty;
-  if (!c_ok || h >= H) return;
-  T* yrow = y + img + static_cast<int64_t>(h) * W * C + c;
-  for (int j = 0; j < TW && w0 + j < W; ++j) {
-    float acc = 0.f;
+  const int64_t img = static_cast<int64_t>(b) * H * W * C;
+  // Input row h0 - 1 + i feeds outputs h0 + i - di (tap row di = 0, 1, 2),
+  // so each output's 9 taps arrive in the plain version's order (di, then
+  // dj) and only ~3 accumulators are live at once: the rows stream through
+  // registers, each loaded once per thread.
+  float acc[TH][4];
 #pragma unroll
-    for (int di = 0; di < 3; ++di)
+  for (int j = 0; j < TH; ++j)
 #pragma unroll
-      for (int dj = 0; dj < 3; ++dj)
-        acc = fmaf(tile[ty + di][j + dj][tx], wr[di * 3 + dj], acc);
-    yrow[static_cast<int64_t>(w0 + j) * C] = from_f32<T>(acc);
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < TH + 2; ++i) {
+    float row[3][4];
+    load_row<T, VEC>(x, img, h0 - 1 + i, col, H, W, C, c, row);
+#pragma unroll
+    for (int di = 0; di < 3; ++di) {
+      const int j = i - di;
+      if (j < 0 || j >= TH) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int dj = 0; dj < 3; ++dj)
+          acc[j][e] = fmaf(row[dj][e], wr[di * 3 + dj][e], acc[j][e]);
+    }
+    const int j = i - 2;                  // output h0 + j is complete
+    if (j < 0 || h0 + j >= H) continue;
+    const int64_t out =
+        img + (static_cast<int64_t>(h0 + j) * W + col) * C + c;
+    if (VEC) {
+      *reinterpret_cast<typename Vec4<T>::type*>(y + out) =
+          Vec4<T>::pack(acc[j]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + e < C) y[out + e] = from_f32<T>(acc[j][e]);
+    }
   }
+}
+
+template <typename T, bool VEC>
+int launch(const void* x, const void* w, void* y, int H, int W, int C,
+           int th, int cg_blk, int upb, int n_chunks, int n_strips,
+           int n_units, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((n_units + upb - 1) / upb),
+                  static_cast<unsigned>(n_chunks));
+  const unsigned threads = static_cast<unsigned>(cg_blk * upb);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  T* yt = static_cast<T*>(y);
+  switch (th) {
+    case 1:
+      dw3x3_kernel<T, VEC, 1><<<grid, threads, 0, stream>>>(
+          xt, wt, yt, H, W, C, cg_blk, upb, n_strips, n_units);
+      break;
+    case 2:
+      dw3x3_kernel<T, VEC, 2><<<grid, threads, 0, stream>>>(
+          xt, wt, yt, H, W, C, cg_blk, upb, n_strips, n_units);
+      break;
+    case 4:
+      dw3x3_kernel<T, VEC, 4><<<grid, threads, 0, stream>>>(
+          xt, wt, yt, H, W, C, cg_blk, upb, n_strips, n_units);
+      break;
+    case 8:
+      dw3x3_kernel<T, VEC, 8><<<grid, threads, 0, stream>>>(
+          xt, wt, yt, H, W, C, cg_blk, upb, n_strips, n_units);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = launched).
+// x, y (B,H,W,C) contiguous, w (C,1,3,3) contiguous. The tile (th rows per
+// thread, cg_blk channel groups x upb columns per block, n_chunks blocks
+// across the channel groups) comes from the wrapper's plan;
+// n_units = B * n_strips * W with n_strips = ceil(H / th). vec: C % 4 == 0
+// and x, w, y 16-byte (f32) / 8-byte (bf16) aligned. dtype: 0 = float32,
+// 1 = bfloat16. Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int depthwise_conv3x3_launch(const void* x, const void* w, void* y,
                                         int64_t B, int64_t H, int64_t W,
-                                        int64_t C, int dtype, void* stream) {
-  const int tiles_w = static_cast<int>((W + TW - 1) / TW);
-  const int tiles_h = static_cast<int>((H + TH - 1) / TH);
-  const dim3 grid(static_cast<unsigned>((C + TC - 1) / TC),
-                  static_cast<unsigned>(tiles_h * tiles_w),
-                  static_cast<unsigned>(B));
-  const dim3 block(TC, TH);
+                                        int64_t C, int th, int cg_blk,
+                                        int upb, int n_chunks, int vec,
+                                        int dtype, void* stream) {
+  const int64_t n_strips = (H + th - 1) / th;
+  const int64_t n_units = B * n_strips * W;
+  if (th <= 0 || cg_blk <= 0 || upb <= 0 || n_units > INT32_MAX ||
+      H * W * C > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    dw3x3_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(y), static_cast<int>(H), static_cast<int>(W),
-        static_cast<int>(C), tiles_w);
-  } else {
-    dw3x3_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(y), static_cast<int>(H),
-        static_cast<int>(W), static_cast<int>(C), tiles_w);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int h = static_cast<int>(H), ww = static_cast<int>(W),
+            c = static_cast<int>(C), ns = static_cast<int>(n_strips),
+            nu = static_cast<int>(n_units);
+  if (dtype == 0)
+    return vec ? launch<float, true>(x, w, y, h, ww, c, th, cg_blk, upb,
+                                     n_chunks, ns, nu, s)
+               : launch<float, false>(x, w, y, h, ww, c, th, cg_blk, upb,
+                                      n_chunks, ns, nu, s);
+  return vec ? launch<__nv_bfloat16, true>(x, w, y, h, ww, c, th, cg_blk, upb,
+                                           n_chunks, ns, nu, s)
+             : launch<__nv_bfloat16, false>(x, w, y, h, ww, c, th, cg_blk,
+                                            upb, n_chunks, ns, nu, s);
 }

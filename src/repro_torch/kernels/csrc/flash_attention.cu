@@ -1,6 +1,8 @@
 // Causal / non-causal attention with an online softmax, grouped-query heads,
-// fp32 scores, running max, denominator and accumulator; output in the
-// input dtype (f32 or bf16).
+// fp32 scores, running max and denominator; output in the input dtype.
+// The dtype picks the kernel, one each:
+//   bf16 -- flash_tc_kernel, both products on the tensor cores (wgmma);
+//   f32  -- flash_kernel, fp32 FMAs on the CUDA cores (exact f32 twin).
 //
 // Replaces: the Pallas kernel src/repro/kernels/flash_attention.py,
 //   flash_attention (grid (B*H, nq, nk), nk sequential, VMEM scratch
@@ -10,28 +12,49 @@
 //   ~2*B*H*S^2*D multiply-adds against 4*B*H*S*D elements moved, i.e. ~S/2
 //   FLOP per byte (1024 at S=2048), far above the ridge of either the fp32
 //   CUDA cores or the bf16 tensor cores.
-// What the design does about it: it keeps every intermediate on chip. One
-//   block of 128 threads owns a 64-row query tile of one (batch, q head); it
-//   walks the 64-key tiles up to the diagonal (tiles above it are never
-//   loaded), staging K and V in shared memory as fp32. Each thread owns 4
-//   query rows x 8 key columns of the score tile and 4 rows x D/8 columns of
-//   the accumulator, so the score and P.V products are register-tiled FMAs on
-//   the CUDA cores; rows are reduced with warp shuffles across the 8 threads
-//   that share them. The scores never reach device memory, so the bytes are
-//   q, k, v read once per query tile and o written once. This first version
-//   uses fp32 FMAs, not the tensor cores: the ops bound above is against
-//   the tensor cores' bf16 rate, and wgmma tiles are the next step.
+// What the bf16 design does about it: the tensor cores do both products.
+//   A block of two warpgroups owns 128 query rows of one (batch, q head),
+//   64 rows per warpgroup (wgmma's M). Q stays in shared memory; 64-key K
+//   and V tiles arrive double-buffered by 16-byte cp.async, so the next tile
+//   loads while this one computes (one barrier per tile: a tile is fetched
+//   into the stage every thread has finished with). S = Q K^T is a wgmma
+//   m64n64k16 from shared memory (both operands K-major: the head dim is
+//   contiguous); the online softmax runs on S's accumulator fragment in
+//   registers (fp32 m and l on raw scores; each probability one FFMA with
+//   the scale folded in and one ex2.approx); P, rounded to bf16 as the
+//   model's reference rounds its probabilities, is the register A operand of
+//   O += P V (wgmma with V read N-major from shared memory). The tiles are
+//   stored with the 128-byte (D=64) or 64-byte (D=32) swizzle that the
+//   wgmma descriptors name, so neither cp.async writes nor wgmma reads
+//   conflict on banks. Scores never leave the registers.
+// What the f32 design does: one block of 128 threads owns a 64-row query
+//   tile and walks the 64-key tiles, staging K and V in shared memory as
+//   fp32; each thread owns 4 query rows x 8 key columns of the score tile
+//   and 4 rows x D/8 columns of the accumulator (register-tiled fp32 FMAs,
+//   rows reduced with warp shuffles), P through shared memory.
 // Shapes: any S (ragged tiles are masked: padded keys score -1e30, padded
 //   query rows are not stored), D in {32, 64}, H a multiple of the kv
 //   heads K (query head h reads kv head h / (H/K)). Tensors are read and
 //   written through their (batch, head, seq) strides with the last dim
 //   contiguous, so the model's seq-major (B,S,H,D) projections need no
-//   transposed copy.
+//   transposed copy; the bf16 kernel loads 16-byte rows, so its strides
+//   and base pointers must be 16-byte aligned (the wrapper checks).
+// Causal tiles: key tiles above the diagonal are never loaded, the
+//   diagonal tile is masked, and the longest query tiles are scheduled
+//   first (the query tile is the slowest grid dimension, reversed).
 #include <cuda_bf16.h>
 
 #include "common.cuh"
 
 namespace {
+
+// Element strides of a (B, heads, S, D) tensor; the D stride is 1.
+struct Strides {
+  int64_t b, h, s;
+};
+
+// ---- f32: fp32 FMAs on the CUDA cores -------------------------------------
+
 
 constexpr int BQ = 64;     // query rows per block
 constexpr int BK = 64;     // keys per tile
@@ -41,22 +64,10 @@ constexpr int CG = 8;      // key columns per thread (strided by 8)
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
 }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);
-}
-
-// Element strides of a (B, heads, S, D) tensor; the D stride is 1.
-struct Strides {
-  int64_t b, h, s;
-};
 
 template <int D>
 constexpr int smem_floats() {
@@ -191,39 +202,401 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
-           int64_t H, int64_t S, int64_t G, int causal, float scale,
-           const int64_t* st, cudaStream_t stream) {
-  constexpr size_t smem = smem_floats<D>() * sizeof(float);
-  // above 48 KB a block's shared memory must be asked for (per device)
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+
+// ---- bf16: wgmma on the tensor cores -------------------------------------
+
+namespace tc {
+
+constexpr int NWG = 2;             // consumer warpgroups per block (1: as fast)
+constexpr int NT = 128 * NWG;      // threads per block
+constexpr int BQ = 64 * NWG;       // query rows per block, 64 per warpgroup
+constexpr int BK = 64;             // keys per tile
+constexpr int STAGES = 2;          // K/V double buffer (a deeper ring: no faster)
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Tile {
+  static constexpr int ROW = D * 2;             // bytes of one bf16 row
+  static constexpr int CHUNKS = D / 8;          // 16-byte chunks per row
+  static constexpr int ATOM = 8 * ROW;          // bytes of 8 rows (SBO)
+  static constexpr int SWIZZLE = D == 64 ? 1 : 2;   // wgmma: 128B / 64B
+  static constexpr int Q_BYTES = BQ * ROW;
+  static constexpr int KV_BYTES = BK * ROW;
+  // + 1024 to align the ring to the swizzle pattern's repeat
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
+};
+
+// Byte offset of 16-byte chunk c of row r in a swizzled tile: the chunk
+// index XOR the row's position in its 1024-byte (D=64) or 512-byte (D=32)
+// swizzle repeat, as wgmma's 128B / 64B swizzle modes read it.
+template <int D>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  if constexpr (D == 64)
+    return r * 128 + ((c ^ (r & 7)) << 4);
+  else
+    return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle mode.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, int swizzle) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
+         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 |
+         static_cast<uint64_t>(swizzle) << 62;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  // src-size 0 fills the 16 bytes with zeros (rows past S)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// generic-proxy writes (cp.async) -> async-proxy reads (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from touching accumulators across an async wgmma.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x N, fp32 in registers) = [d +] A (smem, K-major) B (smem, K-major)
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N, fp32) = [d +] A (registers, bf16 fragment) B (smem, N-major)
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N, fp32) = [d +] A (registers, bf16 fragment) B (smem, N-major)
+__device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 32)
+    wgmma_rs_m64n64k16(d, a, db, 1);
+  else
+    wgmma_rs_m64n32k16(d, a, db, 1);
+}
+
+// 2^x in one MUFU op (flushes denormals: a probability under 2^-126 of the
+// row's largest is 0, as it is to the bf16 PV product anyway)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ROWS x D rows [row0, row0 + ROWS) of a (S, D) slab with row stride
+// `stride` into a swizzled tile; rows past S are zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* base,
+                                          int64_t stride, int row0, int S,
+                                          int tid) {
+  constexpr int CH = Tile<D>::CHUNKS;
+  static_assert(ROWS * CH % NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / NT; ++it) {
+    const int i = tid + it * NT;
+    const int r = i / CH, c = i % CH;
+    const bool ok = row0 + r < S;
+    const __nv_bfloat16* src =
+        base + static_cast<int64_t>(ok ? row0 + r : 0) * stride + c * 8;
+    cp_async16(dst + swz<D>(r, c), src, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 2)
+flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                __nv_bfloat16* __restrict__ o, int S, int G, int causal,
+                float scale_log2, Strides sq, Strides sk, Strides sv,
+                Strides so) {
+  using T = Tile<D>;
+  constexpr int NO = D / 2;          // O accumulator registers per thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sQ = (raw + 1023) & ~1023u;
+  const uint32_t sK = sQ + T::Q_BYTES;
+  const uint32_t sV = sK + STAGES * T::KV_BYTES;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / G;
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.z)) * BQ;
+  const int n_all = (S + BK - 1) / BK;
+  const int n_kt = causal ? min(n_all, (q0 + BQ - 1) / BK + 1) : n_all;
+
+  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
+  const __nv_bfloat16* kb = k + b * sk.b + hk * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + hk * sv.h;
+
+  // Q and tile 0 (commit group 0); tile kt + 1 is issued once every
+  // thread has passed iteration kt's barrier, i.e. is done with tile kt - 1
+  // and its stage
+  load_tile<D, BQ>(sQ, qb, sq.s, q0, S, tid);
+  load_tile<D, BK>(sK, kb, sk.s, 0, S, tid);
+  load_tile<D, BK>(sV, vb, sv.s, 0, S, tid);
+  cp_async_commit();
+
+  // this thread's rows of the warpgroup's 64 (the accumulator fragment:
+  // rows lane/4 and lane/4 + 8 of the warp's 16, columns 2 (lane%4) + {0,1}
+  // of every 8)
+  const int qw0 = q0 + wg * 64;
+  const int r0 = qw0 + warp * 16 + lane / 4, r1 = r0 + 8;
+  const int cq = (lane % 4) * 2;
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  const uint64_t dq = desc(sQ + wg * 64 * T::ROW, 16, T::ATOM, T::SWIZZLE);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();                 // tile kt is in shared memory
+    if (kt + 1 < n_kt) {             // tile kt + 1 into the other stage
+      const uint32_t nst = ((kt + 1) % STAGES) * T::KV_BYTES;
+      load_tile<D, BK>(sK + nst, kb, sk.s, (kt + 1) * BK, S, tid);
+      load_tile<D, BK>(sV + nst, vb, sv.s, (kt + 1) * BK, S, tid);
+      cp_async_commit();
+    }
+
+    const int k0 = kt * BK;
+    const uint32_t st = (kt % STAGES) * T::KV_BYTES;
+    // a tile wholly above this warpgroup's diagonal, or a warpgroup wholly
+    // past S, has nothing to add
+    if (qw0 < S && (!causal || k0 < qw0 + 64)) {
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      const uint64_t dk = desc(sK + st, 16, T::ATOM, T::SWIZZLE);
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd)      // 32 bytes of head dim each
+        wgmma_ss_m64n64k16(s, dq + 2 * kd, dk + 2 * kd, kd);
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(s);
+
+      // m, l and the max run on raw scores (the scale is positive); each
+      // probability is one FFMA and one ex2: 2^(s scale_log2 - m scale_log2)
+      if ((causal && k0 + BK - 1 > qw0) || k0 + BK > S) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kj = k0 + j * 8 + cq + (e & 1);
+            if (kj >= S || (causal && kj > (e < 2 ? r0 : r1)))
+              s[j * 4 + e] = NEG_INF;
+          }
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[j * 4], s[j * 4 + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j * 4 + 2], s[j * 4 + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes sharing a row
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float a0 = ex2((m0 - mx0) * scale_log2);
+      const float a1 = ex2((m1 - mx1) * scale_log2);
+      m0 = mx0;
+      m1 = mx1;
+      const float b0 = -mx0 * scale_log2, b1 = -mx1 * scale_log2;
+      uint32_t p[16];
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p0 = ex2(fmaf(s[j * 4], scale_log2, b0));
+        const float p1 = ex2(fmaf(s[j * 4 + 1], scale_log2, b0));
+        const float p2 = ex2(fmaf(s[j * 4 + 2], scale_log2, b1));
+        const float p3 = ex2(fmaf(s[j * 4 + 3], scale_log2, b1));
+        rs0 += p0 + p1;
+        rs1 += p2 + p3;
+        p[j * 2] = pack_bf16(p0, p1);
+        p[j * 2 + 1] = pack_bf16(p2, p3);
+      }
+      l0 = l0 * a0 + rs0;
+      l1 = l1 * a1 + rs1;
+#pragma unroll
+      for (int j = 0; j < NO / 4; ++j) {
+        acc[j * 4] *= a0;
+        acc[j * 4 + 1] *= a0;
+        acc[j * 4 + 2] *= a1;
+        acc[j * 4 + 3] *= a1;
+      }
+
+      // O += P V, 16 keys per wgmma: P's fragment for keys 16 kk.. is the
+      // score fragment's column blocks 2 kk and 2 kk + 1
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                               p[4 * kk + 3]};
+        wgmma_rs(acc, a, desc(sV + st + kk * 16 * T::ROW, 16, T::ATOM,
+                              T::SWIZZLE));
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(acc);
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  __nv_bfloat16* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int j = 0; j < NO / 4; ++j) {
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(ob + r0 * so.s + j * 8 + cq) =
+          pack_bf16(acc[j * 4] / l0, acc[j * 4 + 1] / l0);
+    if (r1 < S)
+      *reinterpret_cast<uint32_t*>(ob + r1 * so.s + j * 8 + cq) =
+          pack_bf16(acc[j * 4 + 2] / l1, acc[j * 4 + 3] / l1);
+  }
+}
+
+}  // namespace tc
+
+// Dynamic shared memory above 48 KB must be asked for; once per device.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes, uint64_t* done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
-      sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
+  if (dev < 64 && (*done >> dev & 1)) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 64) *done |= uint64_t{1} << dev;
+  return 0;
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               int64_t B, int64_t H, int64_t S, int64_t G, int causal,
+               float scale, const Strides* st, cudaStream_t stream) {
+  constexpr size_t smem = smem_floats<D>() * sizeof(float);
+  static uint64_t done = 0;
+  const int e = allow_smem(flash_kernel<float, D>, smem, &done);
+  if (e) return e;
   const dim3 grid(static_cast<unsigned>((S + BQ - 1) / BQ),
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
-  flash_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<int>(S),
-      static_cast<int>(G), causal, scale, sq, sk, sv, so);
+  flash_kernel<float, D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<int>(S), static_cast<int>(G), causal, scale, st[0], st[1],
+      st[2], st[3]);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_d(int64_t D, const void* q, const void* k, const void* v, void* o,
-             int64_t B, int64_t H, int64_t S, int64_t G, int causal,
-             float scale, const int64_t* st, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, H, S, G, causal, scale, st, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, H, S, G, causal, scale, st, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                int64_t B, int64_t H, int64_t S, int64_t G, int causal,
+                float scale, const Strides* st, cudaStream_t stream) {
+  constexpr size_t smem = tc::Tile<D>::SMEM;
+  static uint64_t done = 0;
+  const int e = allow_smem(tc::flash_tc_kernel<D>, smem, &done);
+  if (e) return e;
+  const dim3 grid(static_cast<unsigned>(H), static_cast<unsigned>(B),
+                  static_cast<unsigned>((S + tc::BQ - 1) / tc::BQ));
+  tc::flash_tc_kernel<D><<<grid, tc::NT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<int>(S), static_cast<int>(G), causal, scale * tc::LOG2E,
+      st[0], st[1], st[2], st[3]);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -239,9 +612,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const int64_t* strides, int dtype,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Strides st[4] = {{strides[0], strides[1], strides[2]},
+                         {strides[3], strides[4], strides[5]},
+                         {strides[6], strides[7], strides[8]},
+                         {strides[9], strides[10], strides[11]}};
+  if (D != 32 && D != 64) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch_d<float>(D, q, k, v, o, B, H, S, G, causal, scale, strides,
-                           s);
-  return launch_d<__nv_bfloat16>(D, q, k, v, o, B, H, S, G, causal, scale,
-                                 strides, s);
+    return D == 32 ? launch_f32<32>(q, k, v, o, B, H, S, G, causal, scale, st, s)
+                   : launch_f32<64>(q, k, v, o, B, H, S, G, causal, scale, st, s);
+  return D == 32 ? launch_bf16<32>(q, k, v, o, B, H, S, G, causal, scale, st, s)
+                 : launch_bf16<64>(q, k, v, o, B, H, S, G, causal, scale, st, s);
 }

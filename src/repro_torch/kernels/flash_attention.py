@@ -1,12 +1,15 @@
 """Causal / non-causal attention with an online softmax, on the card.
 
-CUDA kernel ``csrc/flash_attention.cu``, the port of the Pallas kernel
+CUDA kernels ``csrc/flash_attention.cu``, the port of the Pallas kernel
 ``repro.kernels.flash_attention.flash_attention``: scale 1/sqrt(D), fp32
 running max, denominator and accumulator, causal mask -1e30, key tiles above
-the diagonal skipped, output in q's dtype (f32 or bf16). It also takes what
-the Pallas kernel does not: any S (no tiling contract), grouped-query k/v
-with fewer heads than q, and strided (B,H,S,D) views such as the transpose
-of the model's seq-major (B,S,H,D) projections.
+the diagonal skipped, output in q's dtype. The dtype picks the kernel: bf16
+runs both products on the tensor cores (wgmma), rounding the probabilities
+to bf16 before the PV product as the model's reference does; f32 runs fp32
+FMAs on the CUDA cores. Both take what the Pallas kernel does not: any S
+(no tiling contract), grouped-query k/v with fewer heads than q, and strided
+(B,H,S,D) views such as the transpose of the model's seq-major (B,S,H,D)
+projections.
 """
 from __future__ import annotations
 
@@ -74,9 +77,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, S, D, G = check_args(q, k, v)
     if q.device.type != "cuda":
         raise ValueError("flash_attention kernel needs CUDA tensors")
-    if H > 65535 or B > 65535:
-        raise ValueError(f"flash_attention: B={B}, H={H} exceed the "
+    if H > 65535 or B > 65535 or -(-S // 64) > 65535:
+        raise ValueError(f"flash_attention: B={B}, H={H}, S={S} exceed the "
                          "kernel's grid")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3))
+            for t in (q, k, v)):
+        raise ValueError("flash_attention: the bf16 kernel loads 16-byte "
+                         "rows: base pointers and (batch, head, seq) strides "
+                         "must be 16-byte aligned")
     o = torch.empty((B, S, H, D), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     if o.numel() == 0:

@@ -82,6 +82,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs, vf).to(q.dtype)
 
 
+BF16_ULP = 2.0 ** -8    # a bf16 ulp relative to the value (8 mantissa bits)
+
+
+def flash_bf16_limit(want: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, causal: bool, tol: float
+                     ) -> torch.Tensor:
+    """Element-by-element bound on |got - want| for a bf16 attention
+    ``got`` against ``want``, the plain f32 ``flash_attention`` of the same
+    (upcast) q, k, v:
+
+        tol (1 + |want|) + 2^-8 |want| + 2^-8 A(q, k, |v|)
+
+    ``tol`` covers the other order of the fp32 sums; 2^-8 |want| and
+    2^-8 A(q, k, |v|), A the plain f32 attention applied to |v|, cover
+    the three roundings to bf16 (each at most 2^-9 relative): the
+    probabilities before the PV product, as the model's reference rounds
+    them, the denominator they are taken against, and the output."""
+    a = flash_attention(q.float(), k.float(), v.float().abs(), causal)
+    return tol * (1 + want.abs()) + BF16_ULP * (want.abs() + a)
+
+
 def ssd_chunk_scan(states: torch.Tensor, decay: torch.Tensor) -> torch.Tensor:
     """Mamba-2 inter-chunk state recurrence over states (B,NC,H,P,N) and
     decay (B,NC,H): ``s_0 = 0, s_{c+1} = s_c * decay_c + states_c``, returning

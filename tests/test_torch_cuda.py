@@ -49,6 +49,41 @@ def test_depthwise_kernel_matches_plain(cuda, c, h, w, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# the tile plan's branches (kernels/depthwise_conv.plan): C not a multiple
+# of 4 (element-masked loads), C=1 (one channel group, 128 columns a
+# block), a 1x1 and a 3x5 map (rows and columns past the map), 4x4 maps of
+# C=960 (30 channel chunks) at B=1 and B=8, and 17 channel groups (3
+# chunks of 6, the last one short)
+DW_EDGE_SHAPES = [(2, 5, 3, 30), (2, 4, 4, 1), (1, 1, 1, 1), (2, 1, 1, 30),
+                  (2, 3, 5, 8), (2, 3, 5, 1), (1, 4, 4, 960), (8, 4, 4, 960),
+                  (2, 9, 7, 68)]
+
+
+@pytest.mark.parametrize("shape", DW_EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_kernel_tile_edges(cuda, shape, dtype):
+    g = _gen(sum(shape))
+    x = torch.randn(shape, generator=g).to(cuda, dtype)
+    wt = torch.randn(shape[-1], 1, 3, 3, generator=g).to(cuda, dtype)
+    got = ops.depthwise_conv3x3(x, wt)
+    torch.cuda.synchronize()
+    want = ref.depthwise_conv3x3(x, wt)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2   # FMA contraction
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_depthwise_kernel_unaligned_view(cuda):
+    """A contiguous tensor whose storage starts mid-vector: the wrapper
+    takes the element-wise path, not the 16-byte loads."""
+    g = _gen(5)
+    base = torch.randn(1 + 2 * 6 * 6 * 16, generator=g).to(cuda)
+    x = base[1:].view(2, 6, 6, 16)
+    wt = torch.randn(16, 1, 3, 3, generator=g).to(cuda)
+    torch.testing.assert_close(ops.depthwise_conv3x3(x, wt),
+                               ref.depthwise_conv3x3(x, wt), rtol=1e-5,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("m,k,n", [(128, 128, 128), (37, 45, 29),
                                    (32768, 96, 24), (8192, 144, 24),
                                    (2048, 384, 64), (128, 960, 320)])
@@ -120,16 +155,25 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 # S, every grouping from one kv head per query head (the Pallas kernel's
 # case) to one kv head for all. Each element is held to the plain version
 # in f32 on the same (upcast) inputs: within ATTN_TOL (the online softmax
-# sums in another order), and in bf16 also half a bf16 ulp (2^-8 of the
-# value) for the kernel's one rounding of its fp32 output.
+# sums in another order), and in bf16 within ref.flash_bf16_limit, which
+# adds 2^-8 (|value| + A(q, k, |v|)) for the bf16 kernel's three roundings
+# (the probabilities before the PV product, as the model's reference
+# rounds them, their denominator, the output; A is the plain f32 attention
+# applied to |v|).
 ATTN_TOL = 3e-5
 
 
 def _assert_attention_close(got, q, k, v, causal):
     want = ref.flash_attention(q.float(), k.float(), v.float(), causal)
-    half_ulp = 2.0 ** -8 if got.dtype == torch.bfloat16 else 0.0
-    torch.testing.assert_close(got.float(), want, rtol=ATTN_TOL + half_ulp,
-                               atol=ATTN_TOL)
+    if got.dtype == torch.bfloat16:
+        over = (got.float() - want).abs() - ref.flash_bf16_limit(
+            want, q, k, v, causal, ATTN_TOL)
+        assert float(over.max()) <= 0, (
+            f"{int((over > 0).sum())} elements over the bf16 bound, the "
+            f"worst by {float(over.max())}")
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=ATTN_TOL,
+                                   atol=ATTN_TOL)
 
 
 def _attn_inputs(g, B, H, K, S, D, dtype, device, seq_major=False):
@@ -164,6 +208,22 @@ def test_flash_attention_kernel_heads_and_dims(cuda, H, K, D, dtype):
     for causal in (True, False):
         _assert_attention_close(ops.flash_attention(q, k, v, causal), q, k,
                                 v, causal)
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_flash_attention_bf16_kernel_tile_edges(cuda, S, D, G):
+    """The bf16 (wgmma) kernel around its 64-key tiles and 128-row blocks
+    (one warpgroup's 64 rows past S, a lone ragged key), every query-head
+    group size, both head dims."""
+    H = 8
+    q, k, v = _attn_inputs(_gen(S * D + G), 2, H, H // G, S, D,
+                           torch.bfloat16, cuda, seq_major=True)
+    for causal in (True, False):
+        got = ops.flash_attention(q, k, v, causal)
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        _assert_attention_close(got, q, k, v, causal)
 
 
 def test_flash_attention_kernel_causal_rows_see_only_their_past(cuda):
@@ -224,6 +284,10 @@ def test_lm_kernels_refuse_what_they_do_not_take(cuda):
         flash_attention.flash_attention(q, t, t)
     with pytest.raises(ValueError):          # mixed devices
         flash_attention.flash_attention(q, q.cpu(), q)
+    t = torch.randn(1, 4, 16, 72, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):          # bf16 rows not 16-byte aligned
+        flash_attention.flash_attention(t[..., 4:68], t[..., 4:68],
+                                        t[..., 4:68])
     st = torch.randn(1, 2, 3, 4, 5, device=cuda)
     with pytest.raises(ValueError):
         ssd_scan.ssd_chunk_scan(st, torch.rand(1, 3, 2, device=cuda))

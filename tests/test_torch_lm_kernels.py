@@ -3,6 +3,8 @@ scan; the CPU path of repro_torch.kernels.ops) against the JAX package's
 oracles and its Pallas kernels in interpret mode, on the same numpy inputs.
 The CUDA kernels are held against these plain versions on the card in
 tests/test_torch_cuda.py and chip_smoke.py."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,7 +13,7 @@ import torch
 from repro.kernels import flash_attention as jflash
 from repro.kernels import ref as jref
 from repro.kernels import ssd_scan as jscan
-from repro.models.layers import _segsum
+from repro.models.layers import _sdpa_block, _segsum
 from repro_torch.kernels import ops, ref
 
 # the reference's own kernel-test tolerances (tests/test_kernels.py)
@@ -91,6 +93,42 @@ def test_flash_attention_bf16_in_bf16_out(rng):
     # the value) on top of the f32 tolerance, element by element
     np.testing.assert_allclose(got.float().numpy(), want,
                                rtol=FLASH_TOL + 2.0 ** -8, atol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("s,h,kv,causal", [(256, 4, 2, True),
+                                          (200, 4, 4, False),
+                                          (512, 8, 2, True)])
+def test_model_bf16_attention_meets_the_bf16_kernel_bound(rng, s, h, kv,
+                                                          causal):
+    """The bound the card's bf16 flash kernel is held to
+    (``ref.flash_bf16_limit``) is the reference model's own rounding, not a
+    loosening: the JAX model's bf16 attention tile (``_sdpa_block``, which
+    casts the probabilities to bf16 before the PV product) meets it
+    against the plain f32 attention on the same inputs, where the bound
+    for the output's rounding alone does not hold it."""
+    d = 64
+    q, k, v = _qkv(rng, 2, h, kv, s, d)
+    qb, kb, vb = (torch.from_numpy(t).bfloat16() for t in (q, k, v))
+
+    def seq_major(t):                        # (B,H,S,D) -> (B,S,H,D)
+        return jnp.asarray(t.float().numpy(), jnp.bfloat16).transpose(
+            0, 2, 1, 3)
+    jq = seq_major(qb).reshape(2, s, kv, h // kv, d)     # (B,S,K,G,hd)
+    mask = None
+    if causal:
+        pos = jnp.arange(s)
+        mask = (pos[None, :] <= pos[:, None])[None, None, None]
+    out = _sdpa_block(jq, seq_major(kb), seq_major(vb), mask, 0.0,
+                      1.0 / math.sqrt(d))
+    assert out.dtype == jnp.bfloat16
+    got = torch.from_numpy(np.array(out.astype(jnp.float32))).reshape(
+        2, s, h, d).transpose(1, 2)
+    want = ref.flash_attention(qb.float(), kb.float(), vb.float(), causal)
+    err = (got - want).abs()
+    lim = ref.flash_bf16_limit(want, qb, kb, vb, causal, FLASH_TOL)
+    assert float((err - lim).max()) <= 0
+    output_only = FLASH_TOL * (1 + want.abs()) + ref.BF16_ULP * want.abs()
+    assert bool((err > output_only).any())
 
 
 def test_flash_attention_rejects_bad_operands():
