@@ -22,8 +22,13 @@ Before each path every kernel of it is held against its plain PyTorch
 version at the path's shapes; after it each kernel is timed beside its plain
 version, a PyTorch library call for the same function and the card's bound:
 CUDA events over 50 back-to-back calls, and device time from torch.profiler
-windows whose capture is held to the launches they made (``device_us``). A
-reading under its bound fails the run. Any failed phase exits non-zero.
+windows whose capture is held to the launches they made (``device_us``).
+int8_matmul and quantize_rows are also timed per shape in three groups
+(``gemm_groups``: the calibration corners, the XR nets' 1x1 GEMMs, an LM
+MLP projection), one window per group, each call after the L2 is flushed
+twice over: once with dirty lines and once with clean ones
+(``l2_flushes``). A reading under its bound fails the run. Any failed phase
+exits non-zero.
 
 Standard output ends with the card's `nvidia-smi` name and power limit, one
 JSON line with the kernels' numbers, and the result line
@@ -150,6 +155,9 @@ def median_ms(fn, *args, reps=5, inner=EVENT_CALLS):
 # process (PERF.md section 7)
 PAD_FRONT, PAD_BACK, PAD_CYCLES = 16, 4, 1_000_000
 PAD_NAME = "spin_kernel"
+CALL_MARK = "chip_smoke_call"     # profiler range around each timed call
+FLUSH_BYTES = 96 * 2 ** 20        # written or read before each per-shape
+                                  # call (L2: 50 MB)
 
 # host-side CUDA calls that each put one operation (kernel, copy or fill)
 # on the device, as the profiler names them
@@ -169,14 +177,17 @@ def device_us(calls, reps=5, expect=None, attempts=3):
     profiler saw less the pads', every name must appear a whole number of
     times per pass, and each name containing a key of ``expect`` (a kernel
     of this repository, counted by its wrapper) exactly reps x expect[key]
-    times. capture["per_call_us"] has the median over passes of each call's
-    device time where every call ran exactly one operation.
+    times. Each call runs inside a ``record_function(CALL_MARK)`` range, so
+    the launch calls made inside it say how many of the window's device
+    operations (in stream order) are its own: capture["per_call_us"] has
+    the median over passes of each call's device time (the sum over its
+    operations).
     If the capture falls short, busy is None and by_name empty: "not
     measured", never a partial sum divided by ``reps``. A short window is
     profiled again, up to ``attempts`` windows in all. Returns (busy,
     by_name, capture), capture giving the counts checked."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     for fn, args in calls:
         fn(*args)
     torch.cuda.synchronize()
@@ -187,7 +198,8 @@ def device_us(calls, reps=5, expect=None, attempts=3):
                 torch.cuda._sleep(PAD_CYCLES)
             for _ in range(reps):
                 for fn, args in calls:
-                    fn(*args)
+                    with record_function(CALL_MARK):
+                        fn(*args)
             for _ in range(PAD_BACK):
                 torch.cuda._sleep(PAD_CYCLES)
             torch.cuda.synchronize()
@@ -223,8 +235,14 @@ def _capture(prof, reps, expect, n_calls):
     ``device_us``)."""
     from torch.autograd import DeviceType
     us, count, launched, pads, ops = {}, {}, -PAD_FRONT - PAD_BACK, [], []
+    marks, launch_at = [], []
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and PAD_NAME in e.name:
+        if e.name == CALL_MARK:
+            # the range on the host, and its copy on the device's timeline
+            # (a user annotation, not an operation)
+            if e.device_type != DeviceType.CUDA:
+                marks.append((e.time_range.start, e.time_range.end))
+        elif e.device_type == DeviceType.CUDA and PAD_NAME in e.name:
             pads.append(e.time_range.start)
         elif e.device_type == DeviceType.CUDA:
             us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -232,6 +250,7 @@ def _capture(prof, reps, expect, n_calls):
             ops.append((e.time_range.start, e.time_range.elapsed_us()))
         elif e.name in LAUNCH_APIS:
             launched += 1
+            launch_at.append(e.time_range.start)
     first = min((t for t, _ in ops), default=0)
     front = sum(t < first for t in pads)
     short = []
@@ -253,13 +272,29 @@ def _capture(prof, reps, expect, n_calls):
               f"seen: {front} of {PAD_FRONT} before, {len(pads) - front} of "
               f"{PAD_BACK} after)")
         return None, {}, capture
-    if len(ops) == reps * n_calls:       # one operation per call
-        ops.sort()
+    per_call = _per_call(sorted(ops), sorted(marks), sorted(launch_at))
+    if per_call is not None and len(per_call) == reps * n_calls:
         capture["per_call_us"] = [statistics.median(
-            ops[r * n_calls + i][1] for r in range(reps))
+            per_call[r * n_calls + i] for r in range(reps))
             for i in range(n_calls)]
     by_name = {n: t / reps for n, t in us.items()}
     return sum(by_name.values()), by_name, capture
+
+
+def _per_call(ops, marks, launch_at):
+    """Device microseconds of each marked call: the device operations, in
+    stream order, cut into runs of as many as each call's range made launch
+    calls. None if those launches do not number the operations."""
+    import bisect
+    sizes = [bisect.bisect_right(launch_at, b) - bisect.bisect_left(
+        launch_at, a) for a, b in marks]
+    if sum(sizes) != len(ops):
+        return None
+    out, i = [], 0
+    for n in sizes:
+        out.append(sum(d for _, d in ops[i:i + n]))
+        i += n
+    return out
 
 
 def check_bound(what, readings, bound_ms):
@@ -705,6 +740,174 @@ def lm_slice(dev, gen, report):
     return entries
 
 
+def row(shape, fns, args, nbytes, op_secs, library_args=None):
+    """CUDA-event times of kernel, plain version and library call (None if
+    there is none; on ``library_args`` if given, else on the same inputs),
+    beside the bound: the larger of the bytes over the memory rate and the
+    operations over their rate."""
+    kernel, plain, library = fns
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = op_secs * 1e3
+    return dict(shape=shape, ms=median_ms(kernel, *args),
+                plain_ms=median_ms(plain, *args),
+                library_ms=(None if library is None
+                            else median_ms(library, *(library_args or args))),
+                bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def int_mm_scaled(a, b, sa, sb):
+    """cuBLASLt's int8 GEMM and the dequant in PyTorch: int8_matmul's
+    library yardstick, never called by the port. It is timed on B as
+    ``stored_weight`` keeps it."""
+    import torch
+    return torch._int_mm(a, b).float() * sa[:, None] * sb[None, :]
+
+
+def stored_weight(a, b, sa, sb):
+    """int8_matmul's inputs with B (K, N) stored column by column, as
+    nn.Linear stores a weight (x @ W.t()), made once outside any timed call:
+    on that layout torch._int_mm runs cuBLASLt's int8 tensor-core kernel;
+    on a row-major B it runs a slower sm80 kernel (both are timed)."""
+    return a, b.t().contiguous().t(), sa, sb
+
+
+def l2_flushes(dev):
+    """Two calls that flush the L2 cache (50 MB) through a buffer of
+    FLUSH_BYTES before a per-shape call, so that the call reads its inputs
+    from device memory:
+
+      * "dirty" writes the buffer: every line the call brings in, read or
+        written, evicts a dirty line whose write-back it pays, so no reading
+        can beat the bytes bound of its inputs and outputs, but a reading
+        holds up to one foreign write-back per line it moves;
+      * "clean" reads the buffer: the call pays no foreign write-back, and
+        its outputs can stay in the L2 past its end, so its reading is held
+        only to the bytes of its inputs (``in_bound_ms``)."""
+    import torch
+    buf = torch.ones(FLUSH_BYTES // 4, device=dev)
+    return {"dirty": lambda: buf.fill_(1.0), "clean": lambda: buf.sum()}
+
+
+def group_device_ms(fn, arg_list, flush, cname=None):
+    """Device ms of one call of ``fn`` at each of ``arg_list``, from one
+    capture-checked profiler window over the whole group, each call after
+    ``flush``; None where the capture fell short. With ``cname``, the window
+    must hold one launch of that kernel per call."""
+    calls = []
+    for args in arg_list:
+        calls += [(flush, ()), (fn, args)]
+    _, _, capture = device_us(calls, expect=None if cname is None
+                              else {cname: len(arg_list)})
+    per = capture.get("per_call_us")
+    if per is None:
+        print(f"    per-call device times not found: {capture}")
+    return [None if per is None else per[2 * i + 1] / 1e3
+            for i in range(len(arg_list))]
+
+
+def time_gemm_shapes(dev, gen, mm_groups, q_groups):
+    """int8_matmul and quantize_rows at every shape of their groups
+    (``gemm_groups``): CUDA-event times of kernel, plain version and library
+    call (``row``), then device times at each shape, one window per group
+    and reading, each call after an L2 flush (``l2_flushes``): the kernel
+    after either flush (``device_ms``, ``clean_device_ms``), int8_matmul's
+    library call on the stored weight after either
+    (``library_device_ms``, ``library_clean_device_ms``), on a row-major B
+    after the dirty one (``library_rowmajor_device_ms``), and its GEMM alone
+    (torch._int_mm on the stored weight, int32 out, no dequant) after the
+    dirty one (``int_mm_device_ms``). Returns the rows by kernel name."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    rows = {"int8_matmul": [], "quantize_rows": []}
+    inputs = {"int8_matmul": {}, "quantize_rows": {}}
+    lib_inputs = {}
+    for group in mm_groups.values():
+        for m, k, n in group:
+            args = (torch.randint(-128, 128, (m, k), generator=gen,
+                                  dtype=torch.int8).to(dev),
+                    torch.randint(-128, 128, (k, n), generator=gen,
+                                  dtype=torch.int8).to(dev),
+                    torch.rand(m, generator=gen).to(dev),
+                    torch.rand(n, generator=gen).to(dev))
+            inputs["int8_matmul"][m, k, n] = args
+            lib_inputs[m, k, n] = stored_weight(*args)
+            in_bytes = m * k + k * n + 4 * (m + n)
+            rows["int8_matmul"].append(row(
+                (m, k, n), (ops.int8_matmul, ref.int8_matmul, int_mm_scaled),
+                args, in_bytes + 4 * m * n,
+                2 * m * n * k / INT8_OPS_PER_S + 2 * m * n / FP32_OPS_PER_S,
+                library_args=lib_inputs[m, k, n]))
+            rows["int8_matmul"][-1]["in_bytes_ms"] = (
+                in_bytes / HBM_BYTES_PER_S * 1e3)
+    for group in q_groups.values():
+        for m, n in group:
+            args = (torch.randn(m, n, generator=gen).to(dev),)
+            inputs["quantize_rows"][m, n] = args
+            rows["quantize_rows"].append(row(
+                (m, n), (ops.quantize_rows, ref.quantize_rows, None), args,
+                5 * m * n + 4 * m, 6 * m * n / FP32_OPS_PER_S))
+            rows["quantize_rows"][-1]["in_bytes_ms"] = (
+                4 * m * n / HBM_BYTES_PER_S * 1e3)
+    flushes = l2_flushes(dev)
+    readings = {
+        "int8_matmul": [
+            ("device_ms", ops.int8_matmul, inputs["int8_matmul"], "dirty"),
+            ("clean_device_ms", ops.int8_matmul, inputs["int8_matmul"],
+             "clean"),
+            ("library_device_ms", int_mm_scaled, lib_inputs, "dirty"),
+            ("library_clean_device_ms", int_mm_scaled, lib_inputs, "clean"),
+            ("library_rowmajor_device_ms", int_mm_scaled,
+             inputs["int8_matmul"], "dirty"),
+            ("int_mm_device_ms", torch._int_mm,
+             {s: args[:2] for s, args in lib_inputs.items()}, "dirty")],
+        "quantize_rows": [
+            ("device_ms", ops.quantize_rows, inputs["quantize_rows"],
+             "dirty"),
+            ("clean_device_ms", ops.quantize_rows, inputs["quantize_rows"],
+             "clean")]}
+    cnames = {"int8_matmul": "int8_mm_kernel",
+              "quantize_rows": "quantize_rows_kernel"}
+    for name, groups in (("int8_matmul", mm_groups),
+                         ("quantize_rows", q_groups)):
+        by_shape = {r["shape"]: r for r in rows[name]}
+        for r in rows[name]:
+            r["in_bound_ms"] = max(r["in_bytes_ms"], r["ops_ms"])
+        for group, shapes in groups.items():
+            for s in shapes:
+                by_shape[s]["group"] = group
+            for key, fn, arg_of, flush in readings[name]:
+                got = group_device_ms(
+                    fn, [arg_of[s] for s in shapes], flushes[flush],
+                    cnames[name] if fn is getattr(ops, name) else None)
+                for s, ms in zip(shapes, got):
+                    by_shape[s][key] = ms
+    return rows
+
+
+def gemm_groups(get_config, xr):
+    """The shapes int8_matmul and quantize_rows are timed at, in three
+    groups: the calibration corners (the main path's calls); the XR 1x1
+    GEMMs, every expand and project layer of DetNet at batch 8 and EDSNet at
+    batch 2 as (M = batch H W, K = in_ch, N = out_ch), and (M, out_ch) for
+    quantize_rows; and Llama-3.2-1B's MLP projection at prefill B x S =
+    LM_B x LM_S, (B S, d_model, d_ff) and (B S, d_model)."""
+    mm = {"corner": [(128, 128, 128)], "xr": [], "lm": []}
+    qr = {"corner": [(256, 512)], "xr": [], "lm": []}
+    for net, batch in (("detnet", 8), ("edsnet", 2)):
+        specs = [s for s in xr.conv_layer_specs(get_config(net))
+                 if s.name.endswith(("_expand", "_project"))]
+        mm["xr"] += sorted({(batch * s.in_hw[0] * s.in_hw[1], s.in_ch,
+                             s.out_ch) for s in specs})
+        qr["xr"] += sorted({(batch * s.in_hw[0] * s.in_hw[1], s.out_ch)
+                            for s in specs})
+    llama = get_config("llama3.2-1b")
+    mm["lm"] = [(LM_B * LM_S, llama.d_model, llama.d_ff)]
+    qr["lm"] = [(LM_B * LM_S, llama.d_model)]
+    return mm, qr
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -775,13 +978,9 @@ def main() -> None:
                 for st in xr.build_plan(cfg) if xr.uses_depthwise_kernel(st)]
 
     dw_main = dw_shapes(det_cfg, det_b) + dw_shapes(eds_cfg, eds_b)
-    project = [s for s in xr.conv_layer_specs(det_cfg)
-               if s.name.endswith("_project")]
-    mm_shapes = [(128, 128, 128)] + sorted({
-        (det_b * s.in_hw[0] * s.in_hw[1], s.in_ch, s.out_ch)
-        for s in project})
-    q_shapes = [(256, 512)] + sorted({
-        (det_b * s.in_hw[0] * s.in_hw[1], s.out_ch) for s in project})
+    mm_groups, q_groups = gemm_groups(get_config, xr)
+    mm_shapes = [s for g in mm_groups.values() for s in g]  # corner first
+    q_shapes = [s for g in q_groups.values() for s in g]
     gen = torch.Generator().manual_seed(SEED)
 
     # -- 4. every kernel against its plain version at those shapes --------
@@ -961,29 +1160,11 @@ def main() -> None:
     report["calibration"] = {"constants": constants, "residuals": residuals}
 
     # -- 8. times: kernel, plain version, library call, bound --------------
-    def row(shape, fns, args, nbytes, op_secs):
-        """Times of kernel, plain version and library call (None if there
-        is none) on the same inputs, beside the bound: the larger of the
-        bytes over the memory rate and the operations over their rate."""
-        kernel, plain, library = fns
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = op_secs * 1e3
-        return dict(shape=shape, ms=median_ms(kernel, *args),
-                    plain_ms=median_ms(plain, *args),
-                    library_ms=(None if library is None
-                                else median_ms(library, *args)),
-                    bytes_ms=bytes_ms, ops_ms=ops_ms,
-                    bound_ms=max(bytes_ms, ops_ms),
-                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-
     def conv_dw(x, w):                       # cuDNN/ATen depthwise conv
         return F.conv2d(x.permute(0, 3, 1, 2), w, padding=1,
                         groups=x.shape[-1])
 
-    def int_mm_scaled(a, b, sa, sb):         # cuBLASLt int8 GEMM + dequant
-        return torch._int_mm(a, b).float() * sa[:, None] * sb[None, :]
-
-    rows = {"depthwise_conv3x3": [], "int8_matmul": [], "quantize_rows": []}
+    rows = {"depthwise_conv3x3": []}
     for shape in dw_main:                      # f32, as the forward runs
         B, H, W, C = shape
         x = torch.randn(shape, generator=gen).to(dev)
@@ -992,21 +1173,7 @@ def main() -> None:
             shape, (ops.depthwise_conv3x3, ref.depthwise_conv3x3, conv_dw),
             (x, w), 4 * (2 * B * H * W * C + 9 * C),
             18 * B * H * W * C / FP32_OPS_PER_S))
-    for m, k, n in mm_shapes:
-        a = torch.randint(-128, 128, (m, k), generator=gen,
-                          dtype=torch.int8).to(dev)
-        b = torch.randint(-128, 128, (k, n), generator=gen,
-                          dtype=torch.int8).to(dev)
-        sa, sb = torch.rand(m, device=dev), torch.rand(n, device=dev)
-        rows["int8_matmul"].append(row(
-            (m, k, n), (ops.int8_matmul, ref.int8_matmul, int_mm_scaled),
-            (a, b, sa, sb), m * k + k * n + 4 * (m + n) + 4 * m * n,
-            2 * m * n * k / INT8_OPS_PER_S + 2 * m * n / FP32_OPS_PER_S))
-    for m, n in q_shapes:
-        x = torch.randn(m, n, generator=gen).to(dev)
-        rows["quantize_rows"].append(row(
-            (m, n), (ops.quantize_rows, ref.quantize_rows, None), (x,),
-            5 * m * n + 4 * m, 6 * m * n / FP32_OPS_PER_S))
+    rows.update(time_gemm_shapes(dev, gen, mm_groups, q_groups))
     dev_inputs = {
         "depthwise_conv3x3": [
             (torch.randn(sh, generator=gen).to(dev),
@@ -1023,7 +1190,7 @@ def main() -> None:
     variants = {"depthwise_conv3x3": (ops.depthwise_conv3x3,
                                       ref.depthwise_conv3x3, conv_dw),
                 "int8_matmul": (ops.int8_matmul, ref.int8_matmul,
-                                int_mm_scaled),
+                                int_mm_scaled),     # on the stored weight
                 "quantize_rows": (ops.quantize_rows, ref.quantize_rows, None)}
     # device time of one main-path pass of each kernel (depthwise: the 26
     # steps; the others: their calibration corner), its capture held to the
@@ -1038,8 +1205,11 @@ def main() -> None:
             if fn is None:
                 device[name][label] = None
                 continue
+            arg_list = dev_inputs[name]
+            if fn is int_mm_scaled:
+                arg_list = [stored_weight(*a) for a in arg_list]
             busy, _, capture = device_us(
-                [(fn, a) for a in dev_inputs[name]],
+                [(fn, a) for a in arg_list],
                 expect={cnames[name]: len(dev_inputs[name])}
                 if label == "ms" else None)
             device[name][label] = None if busy is None else busy / 1e3
@@ -1074,14 +1244,23 @@ def main() -> None:
         for r in rs:
             check_bound(f"{name} {r['shape']}", {
                 k: r.get(k) for k in ("ms", "plain_ms", "library_ms",
-                                      "device_ms", "library_device_ms")},
+                                      "device_ms", "library_device_ms",
+                                      "library_rowmajor_device_ms",
+                                      "int_mm_device_ms")},
                 r["bound_ms"])
+            if "in_bound_ms" in r:
+                check_bound(f"{name} {r['shape']} after a clean flush", {
+                    k: r.get(k) for k in ("clean_device_ms",
+                                          "library_clean_device_ms")},
+                    r["in_bound_ms"])
             lib = ("-" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f}")
             dev_us = "".join(
                 f"  {k[:-10] or 'kernel'} device {1e3 * r[k]:.2f} us"
-                for k in ("device_ms", "plain_device_ms",
-                          "library_device_ms") if r.get(k) is not None)
+                for k in ("device_ms", "clean_device_ms", "plain_device_ms",
+                          "library_device_ms", "library_clean_device_ms",
+                          "library_rowmajor_device_ms", "int_mm_device_ms")
+                if r.get(k) is not None)
             print(f"  time {name:17s} {str(r['shape']):22s} kernel "
                   f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f}  library "
                   f"{lib}  bound {r['bound_ms']:.5f} ({r['bound_by']})"

@@ -84,39 +84,106 @@ def test_depthwise_kernel_unaligned_view(cuda):
                                atol=1e-5)
 
 
+def _mm_inputs(m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    return (torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8)),
+            torch.from_numpy(rng.integers(-128, 128, (k, n), dtype=np.int8)),
+            torch.from_numpy(rng.random(m, dtype=np.float32)),
+            torch.from_numpy(rng.random(n, dtype=np.float32)))
+
+
+# the tile plan's branches (kernels/int8_matmul.plan): the corner, ragged
+# M, N and K, K = 24 (8-byte A copies) and N = 24 (8-byte B loads), XR
+# shapes with K up to 960 (a ring of up to four stages) and N = 320 (two
+# column tiles), and sizes of 1
 @pytest.mark.parametrize("m,k,n", [(128, 128, 128), (37, 45, 29),
                                    (32768, 96, 24), (8192, 144, 24),
-                                   (2048, 384, 64), (128, 960, 320)])
+                                   (2048, 384, 64), (128, 960, 320),
+                                   (30720, 24, 144), (100, 24, 40),
+                                   (100, 40, 24), (122880, 16, 96),
+                                   (1, 1, 1), (3, 257, 300), (70, 130, 1000)])
 def test_int8_matmul_kernel_bit_equal(cuda, m, k, n):
-    rng = np.random.default_rng(m + k + n)
-    a = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8))
-    b = torch.from_numpy(rng.integers(-128, 128, (k, n), dtype=np.int8))
-    sa = torch.from_numpy(rng.random(m, dtype=np.float32))
-    sb = torch.from_numpy(rng.random(n, dtype=np.float32))
+    a, b, sa, sb = _mm_inputs(m, k, n)
     args = [t.to(cuda) for t in (a, b, sa, sb)]
+    before = int8_matmul.int8_matmul.launches
     got = ops.int8_matmul(*args)
     torch.cuda.synchronize()
+    assert int8_matmul.int8_matmul.launches == before + 1
     assert torch.equal(got, ref.int8_matmul(*args))
     assert torch.equal(got.cpu(), ref.int8_matmul(a, b, sa, sb))
 
 
-def test_int8_matmul_kernel_exact_accumulation(cuda):
-    a = torch.full((128, 128), 127, dtype=torch.int8, device=cuda)
-    b = torch.full((128, 128), -127, dtype=torch.int8, device=cuda)
+def test_int8_matmul_kernel_lm_shape(cuda):
+    """Llama-3.2-1B's MLP projection at prefill B x S = 4096: (4096, 2048)
+    x (2048, 8192), a ring of four stages and 256-wide tiles."""
+    args = [t.to(cuda) for t in _mm_inputs(4096, 2048, 8192)]
+    got = ops.int8_matmul(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.int8_matmul(*args))
+
+
+def test_int8_matmul_kernel_beyond_the_old_grid(cuda):
+    """M past 65535 blocks of 64 rows, the y-dimension cap of the first
+    kernel: M runs on the grid's x dimension now."""
+    m = 65535 * 64 + 1
+    args = [t.to(cuda) for t in _mm_inputs(m, 8, 8)]
+    got = ops.int8_matmul(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.int8_matmul(*args))
+
+
+def test_int8_matmul_kernel_unaligned_views(cuda):
+    """Operands whose storage starts at an odd byte: the wrapper narrows
+    the copies to bytes."""
+    a, b, sa, sb = (t.to(cuda) for t in _mm_inputs(96, 64, 48))
+    ab = torch.zeros(1 + a.numel(), dtype=torch.int8, device=cuda)
+    bb = torch.zeros(1 + b.numel(), dtype=torch.int8, device=cuda)
+    ab[1:] = a.flatten()
+    bb[1:] = b.flatten()
+    got = ops.int8_matmul(ab[1:].view(a.shape), bb[1:].view(b.shape), sa, sb)
+    assert torch.equal(got, ref.int8_matmul(a, b, sa, sb))
+
+
+@pytest.mark.parametrize("k", [128, int8_matmul.MAX_K])
+def test_int8_matmul_kernel_exact_accumulation(cuda, k):
+    """127 x -127 summed K times: at K = MAX_K the int32 sum is within
+    2^31 of zero by 33 million, and every partial sum is exact."""
+    a = torch.full((128, k), 127, dtype=torch.int8, device=cuda)
+    b = torch.full((k, 128), -127, dtype=torch.int8, device=cuda)
     one = torch.ones(128, device=cuda)
     out = ops.int8_matmul(a, b, one, one)
-    assert torch.all(out == 127 * -127 * 128)
+    assert torch.all(out == float(127 * -127 * k))
+    assert torch.equal(out, ref.int8_matmul(a, b, one, one))
 
 
+# the lane plan's branches (kernels/quantize.plan): groups of 4, 8 and 16
+# lanes per row (N = 16, 24, 33; 33 takes element loads), a warp per row
+# with 1 to 16 slots a lane (N = 144 .. 2048), a block per row (N = 100000,
+# 2049), and N = 1 and 5
 @pytest.mark.parametrize("m,n", [(256, 512), (32768, 24), (5, 33),
-                                 (8192, 144), (3, 100000)])
+                                 (8192, 144), (3, 100000), (122880, 16),
+                                 (7680, 24), (1000, 33), (4096, 2048),
+                                 (9, 2049), (7, 1), (7, 5)])
 def test_quantize_kernel_bit_equal(cuda, m, n):
     x = (torch.randn(m, n, generator=_gen(m + n)) * 3).to(cuda)
+    before = quantize.quantize_rows.launches
     q, s = ops.quantize_rows(x)
+    assert quantize.quantize_rows.launches == before + 1
     rq, rs = ref.quantize_rows(x)
     assert torch.equal(q, rq) and torch.equal(s, rs)
     cq, cs = ref.quantize_rows(x.cpu())
     assert torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs)
+
+
+@pytest.mark.parametrize("n", [16, 2048])
+def test_quantize_kernel_unaligned_view(cuda, n):
+    """Rows whose base is not 16-byte aligned (a view at offset 1): element
+    loads and byte stores instead of the vectors."""
+    base = (torch.randn(1 + 64 * n, generator=_gen(n)) * 3).to(cuda)
+    x = base[1:].view(64, n)
+    q, s = ops.quantize_rows(x)
+    rq, rs = ref.quantize_rows(x)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
 
 
 def test_quantize_kernel_half_ties(cuda):
