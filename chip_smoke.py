@@ -16,7 +16,15 @@ with the kernels' launch counts set to 0 just before it and read just after:
     B=2, S=2048) and the continuous-batching server on 8 requests each;
     then served tokens checked against the teacher-forced forward (one
     repeat at full width in f32 and bf16, and full depth in f32), and a
-    one-repeat twin of each model checked against the CPU.
+    one-repeat twin of each model checked against the CPU;
+  * the XR training path (slice 5, ``train_slice``): full-width DetNet
+    (b8, 128x128) and EDSNet (b4, 384x640) trained 20 steps each through
+    ``train.loop.run_xr_training`` with checkpoints, every stride-1
+    depthwise step on the kernel forward and backward (the input gradient
+    through the forward kernel, the weight gradient through its own
+    kernel), then resumed from step 10; its backward pieces are held to
+    their plain versions at the 26 training shapes, one step to the same
+    step on the CPU, and the steps and the weight-gradient kernel timed.
 
 Before each path every kernel of it is held against its plain PyTorch
 version at the path's shapes; after it each kernel is timed beside its plain
@@ -740,6 +748,376 @@ def lm_slice(dev, gen, report):
     return entries
 
 
+# -- slice 5: XR training ---------------------------------------------------
+TRAIN_NETS = (("detnet", 8), ("edsnet", 4))    # the examples' batch sizes
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 20, 10
+U32 = 2.0 ** -24                 # f32 unit roundoff
+# the weight-gradient kernel against its plain version, each tap: the plain
+# version evaluated in f64 (its own error negligible), the kernel's error
+# held to depth x 2^-24 x sum|x g| over that channel's products: a sum whose
+# every term passes through at most ``depth`` f32 roundings
+# (``wgrad_plan``: the thread's chain, the block's and the second pass's
+# sums) is off by at most that much, whatever the terms cancel to; a bound
+# on the result itself would fail wherever the sum cancels
+# the Function's gradients against autograd of the plain forward, whose
+# own f32 sums take an order we do not bound: dx within DW_TOL (as the
+# forward), dw within WIRING_TOL x sum|x g| (a wiring fault, a turned or
+# transposed tap, is off by O(sum|x g|))
+WIRING_TOL = 1e-5
+# one step on the card against the same step of the port on the CPU in
+# f32 and in f64: the card's largest distance from the f64 gradients at
+# most GRAD_K times the CPU f32's own, + GRAD_TOL x the largest entry,
+# absolute over the net (leaves whose exact gradient is zero carry only
+# noise). A fixed GRAD_TOL alone cannot hold here: at full width and b8
+# the f32 step is ill-conditioned, CPU and card alike ~1% of the largest
+# entry off f64 in the early BN leaves (PERF.md), where the smoke nets of
+# the CPU tests stay within GRAD_TOL of the reference
+RESUME_RTOL = 1e-5               # resumed steps against the first run
+GRAD_TOL, GRAD_K = 1e-4, 2.0
+
+
+def train_slice(dev, gen, report, dw_shapes):
+    """Slice 5: XR training of full-width DetNet (b8, 128x128) and EDSNet
+    (b4, 384x640) through ``train.loop.run_xr_training``, every stride-1
+    depthwise step on the kernel forward (13) and backward (13 dx through
+    the forward kernel, 13 dw). Returns the kernels-line entry of
+    depthwise_conv3x3_wgrad."""
+    import math
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import depthwise_conv as dwk
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train_xr
+    from repro_torch.models import xr
+    from repro_torch.train import loop, optim
+
+    # non-kernel convs' backward in cuDNN's deterministic algorithms, for
+    # this phase only, so a resumed run can repeat the first (T2)
+    det_flags = (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfgs = {name: get_config(name) for name, _ in TRAIN_NETS}
+    shapes = {name: dw_shapes(cfgs[name], b) for name, b in TRAIN_NETS}
+    all_shapes = shapes["detnet"] + shapes["edsnet"]
+    check(len(all_shapes) == 26, f"{len(all_shapes)} training depthwise "
+          "shapes, not 26")
+
+    # -- T1. the backward's pieces against their plain versions ------------
+    inputs, err, worst = [], 0.0, 0.0
+    for shape in all_shapes:
+        C = shape[-1]
+        x = torch.randn(shape, generator=gen).to(dev)
+        g = torch.randn(shape, generator=gen).to(dev)
+        w = torch.randn(C, 1, 3, 3, generator=gen).to(dev)
+        inputs.append((x, g, w))
+        wr = dwk.rotated(w)
+        dx = ops.depthwise_conv3x3(g, wr)
+        want = ref.depthwise_conv3x3(g, wr)
+        e = float((dx - want).abs().max())
+        lim = DW_TOL["float32"] * (1 + float(want.abs().max()))
+        check(e <= lim, f"dx {shape}: max err {e} > {lim}")
+        dw1 = ops.depthwise_conv3x3_wgrad(x, g)
+        dw2 = ops.depthwise_conv3x3_wgrad(x, g)
+        torch.cuda.synchronize()
+        check(torch.equal(dw1, dw2), f"dw {shape}: two runs differ in bits")
+        exact = ref.depthwise_conv3x3_wgrad(x.double(), g.double())
+        mag = ref.depthwise_conv3x3_wgrad(x.double().abs(), g.double().abs())
+        bound = dwk.wgrad_plan(*shape).depth * U32 * mag
+        off = (dw1.double() - exact).abs()
+        check(bool((off <= bound).all()), f"dw {shape}: off the f64 sum by "
+              f"more than its rounding bound (max {float(off.max())})")
+        worst = max(worst, float((off / bound)[bound > 0].max()))
+        err = max(err, float((dw1 - ref.depthwise_conv3x3_wgrad(x, g))
+                             .abs().max()))
+        # the Function against autograd of the plain forward
+        r = torch.randn(shape, generator=gen).to(dev)
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        (ops.depthwise_conv3x3(xa, wa) * r).sum().backward()
+        xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+        (ref.depthwise_conv3x3(xb, wb) * r).sum().backward()
+        e = float((xa.grad - xb.grad).abs().max())
+        lim = DW_TOL["float32"] * (1 + float(xb.grad.abs().max()))
+        check(e <= lim, f"Function dx {shape}: max err {e} > {lim}")
+        mag_r = ref.depthwise_conv3x3_wgrad(x.abs(), r.abs())
+        check(bool(((wa.grad - wb.grad).abs() <= WIRING_TOL * mag_r).all()),
+              f"Function dw {shape}: off autograd of the plain forward")
+    print(f"T1 backward vs plain: {len(all_shapes)} training depthwise "
+          f"shapes: dx within {DW_TOL['float32']}, dw bit-identical run to "
+          f"run and within {worst:.3g} of its rounding bound off the f64 "
+          f"sum (max abs err vs the f32 plain version {err:.3g}); the "
+          "Function's gradients match autograd of the plain forward")
+
+    # -- T2. the main path: run_xr_training on the card, counted ----------
+    ckpt_root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    data = {name: [next(it) for _ in range(TRAIN_STEPS)]
+            for name, b in TRAIN_NETS
+            for it in [train_xr.batches(cfgs[name], b)]}
+    loss_fns = {"detnet": xr.circle_loss, "edsnet": xr.dice_loss}
+
+    def train(name, seed, steps_per_launch):
+        net = xr.XRNet(cfgs[name], torch.Generator().manual_seed(seed),
+                       device=dev)
+        per_step, times = [], []
+
+        def beat(step, dt):
+            per_step.append(dict(ops.launches()))
+            times.append(dt)
+
+        res = loop.run_xr_training(
+            net, iter(data[name]), loss_fn=loss_fns[name],
+            steps=TRAIN_STEPS, lr=3e-3, ckpt_dir=str(ckpt_root / name),
+            ckpt_every=TRAIN_CKPT_EVERY,
+            hooks=loop.TrainHooks(heartbeat=beat, log_every=10))
+        before = steps_per_launch
+        for i, now in enumerate(per_step):
+            diff = {k: now[k] - before[k] for k in now}
+            check(diff == {**{k: 0 for k in now}, "depthwise_conv3x3": 26,
+                           "depthwise_conv3x3_wgrad": 13},
+                  f"{name} step {i}: launches {diff}, not 13 forward + 13 "
+                  "dx depthwise and 13 dw")
+            before = now
+        return net, res, times, before
+
+    ops.reset_launches()
+    dwk.DepthwiseConv3x3.copies = 0
+    t_main = time.perf_counter()
+    runs, after = {}, ops.launches()
+    for i, (name, b) in enumerate(TRAIN_NETS):
+        net, res, times, after = train(name, SEED + 10 + i, after)
+        check(res.step == TRAIN_STEPS and len(res.losses) == TRAIN_STEPS,
+              f"{name}: {res.step} steps")
+        for k, p in net.named_parameters():
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                  f"{name} {k}: gradient missing or not finite")
+        for st in net.plan:
+            if xr.uses_depthwise_kernel(st) or st.name == "stem":
+                gw = getattr(net, st.name).w.grad
+                check(bool((gw != 0).any()), f"{name} {st.name}.w: the "
+                      "gradient is zero everywhere")
+        check(all(map(math.isfinite, res.losses)), f"{name}: loss not finite")
+        runs[name] = (net, res, times)
+    # resume: drop the last checkpoint, rerun from step TRAIN_CKPT_EVERY
+    resumed = {}
+    for i, (name, b) in enumerate(TRAIN_NETS):
+        last = ckpt_root / name / f"step_{TRAIN_STEPS:010d}"
+        check(last.is_dir(), f"{name}: no checkpoint at step {TRAIN_STEPS}")
+        shutil.rmtree(last)
+        net, res, _, after = train(name, SEED + 20 + i, after)
+        resumed[name] = (net, res)
+    torch.cuda.synchronize()
+    t_main = time.perf_counter() - t_main
+    launches = ops.launches()
+    print(f"T2 training path: {t_main:.2f} s, launches {launches}, gradient "
+          f"copies before the depthwise backward "
+          f"{dwk.DepthwiseConv3x3.copies}")
+    n_steps = 2 * (TRAIN_STEPS + TRAIN_STEPS - TRAIN_CKPT_EVERY)
+    check(launches["depthwise_conv3x3"] == 26 * n_steps
+          and launches["depthwise_conv3x3_wgrad"] == 13 * n_steps,
+          f"training launches {launches}, not 26 + 13 per step x {n_steps}")
+    det_losses = runs["detnet"][1].losses
+    check(min(det_losses[-4:]) < det_losses[0],
+          f"DetNet loss did not fall: {det_losses}")
+    resume_err = {}
+    for name, (net, res) in resumed.items():
+        first = runs[name][1].losses[TRAIN_CKPT_EVERY:]
+        check(len(res.losses) == TRAIN_STEPS - TRAIN_CKPT_EVERY,
+              f"{name}: resumed run took {len(res.losses)} steps")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res.losses, first))
+        resume_err[name] = rel
+        check(rel <= RESUME_RTOL, f"{name}: resumed steps differ from the "
+              f"first run by {rel} relative")
+    for name, (net, res, times) in runs.items():
+        print(f"  {name}: loss {res.losses[0]:.4f} -> {res.losses[-1]:.4f} "
+              f"over {TRAIN_STEPS} steps; resumed steps "
+              f"{TRAIN_CKPT_EVERY}-{TRAIN_STEPS - 1} within "
+              f"{resume_err[name]:.3g} relative of the first run")
+    report["train"] = {
+        name: {"losses": res.losses, "resumed": resumed[name][1].losses,
+               "resume_rel_err": resume_err[name], "step_s": times}
+        for name, (net, res, times) in runs.items()}
+    report["train_launches"] = launches
+
+    # -- T3. one step on the card against the same step on the CPU --------
+    # and in f64 on the CPU (the yardstick: plain depthwise in f64)
+    for i, (name, b) in enumerate(TRAIN_NETS):
+        net = xr.XRNet(cfgs[name], torch.Generator().manual_seed(SEED + 30),
+                       device=dev)
+        twin = xr.XRNet(cfgs[name], device="cpu")
+        twin.load_state_dict(net.state_dict())
+        exact = xr.XRNet(cfgs[name], device="cpu")
+        exact.load_state_dict(net.state_dict())
+        exact.double()
+        batch = data[name][0][0]
+        lr_fn = optim.cosine_schedule(3e-3, 1, 1)      # lr(0) = 0
+        out = []
+        for m, d, dt in ((net, dev, torch.float32),
+                         (twin, torch.device("cpu"), torch.float32),
+                         (exact, torch.device("cpu"), torch.float64)):
+            step = loop.make_xr_step(m, loss_fns[name], lr_fn)
+            bt = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+            bt = {k: v.to(dt) if v.is_floating_point() else v
+                  for k, v in bt.items()}
+            kernel = ops.depthwise_conv3x3
+            if dt == torch.float64:    # the ops check refuses f64
+                ops.depthwise_conv3x3 = ref.depthwise_conv3x3
+            try:
+                _, metrics = step(optim.adamw_init(
+                    dict(m.named_parameters())), bt, 0)
+            finally:
+                ops.depthwise_conv3x3 = kernel
+            out.append((float(metrics["loss"]), {
+                k: p.grad.double().cpu() for k, p in m.named_parameters()}))
+        (lc, gc), (lh, gh), (l64, g64) = out
+        gmax = max(float(g.abs().max()) for g in g64.values())
+
+        def off(g):
+            return max(float((g[k] - g64[k]).abs().max()) for k in g64)
+        e_card, e_cpu = off(gc), off(gh)
+        diff = max(float((gc[k] - gh[k]).abs().max()) for k in gh)
+        check(e_card <= GRAD_K * e_cpu + GRAD_TOL * gmax, f"{name}: the "
+              f"card's gradients are {e_card} off the f64 ones, the CPU's "
+              f"{e_cpu} (largest entry {gmax})")
+        check(abs(lc - l64) <= GRAD_TOL * abs(l64), f"{name}: loss {lc} "
+              f"(card), {l64} (f64)")
+        print(f"T3 {name} b{b}: one step, loss card {lc} / CPU {lh} / f64 "
+              f"{l64}; gradients off the f64 ones by {e_card / gmax:.3g} "
+              f"(card) and {e_cpu / gmax:.3g} (CPU f32) of the largest "
+              f"entry {gmax:.4g}; card vs CPU {diff / gmax:.3g}")
+        report["train"][name].update(grad_off_f64_card=e_card / gmax,
+                                     grad_off_f64_cpu=e_cpu / gmax,
+                                     card_vs_cpu_grad=diff / gmax)
+
+    # -- T4. times, with cuDNN's default algorithm choice again -----------
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        det_flags
+    def conv_wgrad(x, g):     # PyTorch's weight gradient: the yardstick
+        xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        return torch.ops.aten.convolution_backward(
+            gc, xc, torch.empty(x.shape[-1], 1, 3, 3, device=x.device),
+            None, [1, 1], [1, 1], [1, 1], False, [0, 0], x.shape[-1],
+            [False, True, False])[1]
+
+    check(bool(torch.allclose(conv_wgrad(*inputs[0][:2]),
+                              ops.depthwise_conv3x3_wgrad(*inputs[0][:2]),
+                              rtol=1e-4, atol=1e-3)),
+          "the library's weight gradient is not the same function")
+    rows = []
+    for shape, (x, g, w) in zip(all_shapes, inputs):
+        B, H, W, C = shape
+        rows.append(row(shape, (ops.depthwise_conv3x3_wgrad,
+                                ref.depthwise_conv3x3_wgrad, conv_wgrad),
+                        (x, g), 4 * (2 * B * H * W * C + 9 * C),
+                        18 * B * H * W * C / FP32_OPS_PER_S))
+    # device time per pass over each net's 13 calls: forward, dx, dw, cuDNN
+    n13 = len(shapes["detnet"])
+    passes = {}
+    for gi, (name, _) in enumerate(TRAIN_NETS):
+        part = inputs[gi * n13:(gi + 1) * n13]
+        calls = {
+            "forward": [(ops.depthwise_conv3x3, (x, w)) for x, g, w in part],
+            "dx": [(ops.depthwise_conv3x3, (g, dwk.rotated(w)))
+                   for x, g, w in part],
+            "dw": [(ops.depthwise_conv3x3_wgrad, (x, g))
+                   for x, g, w in part],
+            "plain_dw": [(ref.depthwise_conv3x3_wgrad, (x, g))
+                         for x, g, w in part],
+            "library_dw": [(conv_wgrad, (x, g)) for x, g, w in part]}
+        expect = {"forward": {"dw3x3_kernel": n13}, "dx": {"dw3x3_kernel":
+                  n13}, "dw": {"dw3x3_wgrad": 2 * n13}, "plain_dw": None,
+                  "library_dw": None}
+        passes[name] = {}
+        for label, cl in calls.items():
+            busy, _, capture = device_us(cl, expect=expect[label])
+            passes[name][f"{label}_ms"] = None if busy is None else busy / 1e3
+            per = capture.get("per_call_us")
+            if label in ("dw", "library_dw") and per is not None:
+                for r, us in zip(rows[gi * n13:(gi + 1) * n13], per):
+                    r["device_ms" if label == "dw"
+                      else "library_device_ms"] = us / 1e3
+        grp = rows[gi * n13:(gi + 1) * n13]
+        passes[name]["dw_bound_ms"] = sum(r["bound_ms"] for r in grp)
+        print(f"  T4 {name} device ms per pass of 13 depthwise steps: " +
+              ", ".join(f"{k} {v:.4f}" if v is not None else f"{k} not "
+                        "measured" for k, v in passes[name].items()))
+    for r in rows:
+        check_bound(f"depthwise_conv3x3_wgrad {r['shape']}", {
+            k: r.get(k) for k in ("ms", "plain_ms", "library_ms",
+                                  "device_ms", "library_device_ms")},
+            r["bound_ms"])
+        print(f"  time depthwise_conv3x3_wgrad {str(r['shape']):20s} kernel "
+              f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f}  library "
+              f"{r['library_ms']:.4f}  bound {r['bound_ms']:.5f}" + "".join(
+                  f"  {k[:-10] or 'kernel'} device {1e3 * r[k]:.2f} us"
+                  for k in ("device_ms", "library_device_ms")
+                  if r.get(k) is not None))
+    for name in passes:
+        check_bound(f"dw pass {name}", {
+            k: passes[name][k] for k in ("dw_ms", "plain_dw_ms",
+                                         "library_dw_ms")},
+            passes[name]["dw_bound_ms"])
+
+    # one training step: wall (median of the run's steps after the first),
+    # device busy, idle share and top kernels from one profiled step
+    steps_report = {}
+    for name, b in TRAIN_NETS:
+        net = resumed[name][0]
+        step = loop.make_xr_step(net, loss_fns[name],
+                                 optim.cosine_schedule(3e-3, 1, 1))
+        opt = optim.adamw_init(dict(net.named_parameters()))
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data[name][0][0].items()}
+        fp, by_name = wall_profile(lambda: step(opt, batch, 0), reps=3,
+                                   expect={"dw3x3_kernel": 26,
+                                           "dw3x3_wgrad": 26})
+        times = runs[name][2]
+        fp["step_wall_ms"] = 1e3 * statistics.median(times[1:])
+        busy = fp["device_busy_ms"]
+        if by_name:
+            for key in ("dw3x3_kernel", "dw3x3_wgrad"):
+                us = sum(v for k, v in by_name.items() if key in k)
+                fp[f"{key}_us"] = us
+                fp[f"{key}_share"] = us / 1e3 / busy
+        steps_report[name] = fp
+        print(f"  training step {name} b{b}: wall {fp['step_wall_ms']:.3f} ms "
+              f"(median of steps 2-{TRAIN_STEPS} in run_xr_training; "
+              f"{fp['wall_ms']:.3f} ms alone), device busy " +
+              ("not measured" if busy is None else
+               f"{busy:.3f} ms, idle share {fp['idle_share']:.3f}, "
+               f"depthwise forward+dx {fp.get('dw3x3_kernel_us', 0):.1f} us "
+               f"({100 * fp.get('dw3x3_kernel_share', 0):.1f}%), dw "
+               f"{fp.get('dw3x3_wgrad_us', 0):.1f} us "
+               f"({100 * fp.get('dw3x3_wgrad_share', 0):.1f}%)"))
+        for kname, us in fp["top_kernels_us"]:
+            print(f"    {us:9.1f} us  {kname[:90]}")
+    report["train_steps"] = steps_report
+    report["train_dw_passes"] = passes
+    report["train_wgrad_times"] = rows
+
+    total = {k: sum(r[k] for r in rows) for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")}
+    dev_ms = [passes[n]["dw_ms"] for n, _ in TRAIN_NETS]
+    lib_ms = [passes[n]["library_dw_ms"] for n, _ in TRAIN_NETS]
+    plain_ms = [passes[n]["plain_dw_ms"] for n, _ in TRAIN_NETS]
+    return {
+        "name": "depthwise_conv3x3_wgrad", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/depthwise_conv.cu",
+        "replaces": "none: no TPU kernel (the reference lets XLA transpose "
+                    "lax.conv, src/repro/models/xr.py:222)",
+        "launches": launches["depthwise_conv3x3_wgrad"],
+        "max_abs_err": err, "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": total["bound_ms"],
+        "bound_by": ("bytes" if total["bytes_ms"] >= total["ops_ms"]
+                     else "operations"),
+        "library_ms": total["library_ms"],
+        "device_ms": None if None in dev_ms else sum(dev_ms),
+        "plain_device_ms": None if None in plain_ms else sum(plain_ms),
+        "library_device_ms": None if None in lib_ms else sum(lib_ms)}
+
+
 def row(shape, fns, args, nbytes, op_secs, library_args=None):
     """CUDA-event times of kernel, plain version and library call (None if
     there is none; on ``library_args`` if given, else on the same inputs),
@@ -1270,6 +1648,9 @@ def main() -> None:
     # -- slice 2: the LM path (LM 1-5 in lm_slice) --------------------------
     lm_entries = lm_slice(dev, gen, report)
 
+    # -- slice 5: XR training (T1-T4 in train_slice) -----------------------
+    train_entry = train_slice(dev, gen, report, dw_shapes)
+
     # -- 9. the kernels line -----------------------------------------------
     # depthwise: summed over the 26 stride-1 steps of one DetNet b8 and one
     # EDSNet b2 forward; int8_matmul and quantize_rows: the calibration
@@ -1310,7 +1691,7 @@ def main() -> None:
             "device_ms": device[name]["ms"],
             "plain_device_ms": device[name]["plain_ms"],
             "library_device_ms": device[name]["library_ms"]})
-    kernels += lm_entries
+    kernels += lm_entries + [train_entry]
     report["kernels"] = kernels
     report["profiler_edge_loss"].append(edge_loss(t0))
     print("profiler loss at an unpadded window's start: " + "; ".join(

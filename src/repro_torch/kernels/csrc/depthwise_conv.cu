@@ -26,6 +26,9 @@
 //   Channel groups past C (C not a multiple of 4 is masked element by
 //   element, no separate kernel), columns past the batch and rows past H
 //   are the only idle threads.
+// The weight gradient of the same convolution (no TPU counterpart: the
+// reference lets XLA transpose lax.conv) is the second half of this file,
+// after depthwise_conv3x3_launch.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -248,4 +251,228 @@ extern "C" int depthwise_conv3x3_launch(const void* x, const void* w, void* y,
                                            n_chunks, ns, nu, s)
              : launch<__nv_bfloat16, false>(x, w, y, h, ww, c, th, cg_blk,
                                             upb, n_chunks, ns, nu, s);
+}
+
+// ---------------------------------------------------------------------------
+// Weight gradient: dw[c, di, dj] = sum_{b,h,w} x[b, h+di-1, w+dj-1, c]
+//                                              * g[b, h, w, c]   (f32)
+//
+// Replaces: nothing on the TPU (the reference differentiates lax.conv and
+//   XLA writes the transpose); the input gradient reuses dw3x3_kernel on g
+//   with the weights turned 180 degrees (kernels/depthwise_conv.py).
+// What bounds it on the H100: bytes. Nine multiply-adds per element of x
+//   and g, read once each (2.25 FLOP/byte), so the floor is
+//   (x + g + dw) / 3.35 TB/s.
+// What the design does about it: the forward's thread layout, read the other
+//   way round. A thread owns 4 neighbouring channels of one column of a row
+//   strip ("unit"), streams the strip's TH + 2 input rows (columns w-1..w+1)
+//   and TH gradient rows through registers, and keeps the 4 x 9 sums in
+//   f32 registers. It walks units u, u + stride, ... (a fixed assignment),
+//   so the grid stays at about one wave whatever the map's size and the
+//   per-block partials stay few. The block sums its threads' partials in
+//   a fixed order in shared memory and writes one row of partials;
+//   dw3x3_wgrad_reduce sums the rows, again in a fixed order. No float
+//   atomics: two runs give the same bits.
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr int kRedY = 16;        // rows of partials summed side by side
+
+template <bool VEC>
+__device__ __forceinline__ void load4f(const float* __restrict__ p,
+                                       int64_t off, int c, int C, bool in,
+                                       float (&v)[4]) {
+  if (VEC) {
+    if (in && c < C) {
+      const float4 u = *reinterpret_cast<const float4*>(p + off + c);
+      v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = in && c + e < C ? p[off + c + e] : 0.f;
+  }
+}
+
+// x, g: (B, H, W, C) contiguous f32. partial: (gridDim.x, Cp, 9) with
+// Cp = gridDim.y * cg_blk * 4; block (bx, chunk) writes row bx, channels
+// [chunk * cg_blk * 4, (chunk + 1) * cg_blk * 4).
+template <bool VEC, int TH>
+__global__ void __launch_bounds__(128, 4)
+dw3x3_wgrad_partial(const float* __restrict__ x, const float* __restrict__ g,
+                    float* __restrict__ partial, int H, int W, int C,
+                    int cg_blk, int upb, int n_strips, int n_units) {
+  __shared__ float red[128][37];           // 36 sums a thread, padded
+  const int tid = threadIdx.x;
+  const int cgi = tid % cg_blk;
+  const int slot = tid / cg_blk;
+  const int c = (blockIdx.y * cg_blk + cgi) * 4;
+  float acc[9][4];
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+
+  const int stride = gridDim.x * upb;
+  for (int unit = blockIdx.x * upb + slot; unit < n_units; unit += stride) {
+    const int col = unit % W;
+    const int strip = (unit / W) % n_strips;
+    const int b = unit / W / n_strips;
+    const int h0 = strip * TH;
+    const int64_t img = static_cast<int64_t>(b) * H * W * C;
+    // gq[d]: gradient row i - d of the strip (0 past the strip or the map)
+    float gq[3][4];
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gq[d][e] = 0.f;
+    // input row h0 - 1 + i meets gradient rows i - di (tap row di). Two
+    // rows an iteration: unrolled whole, the compiler hoists every row's
+    // loads and needs more than the 128 registers 4 blocks an SM allow
+#pragma unroll 2
+    for (int i = 0; i < TH + 2; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        gq[2][e] = gq[1][e];
+        gq[1][e] = gq[0][e];
+      }
+      if (i < TH) {
+        const bool in = h0 + i < H;
+        load4f<VEC>(g, img + (static_cast<int64_t>(h0 + i) * W + col) * C,
+                    c, C, in, gq[0]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gq[0][e] = 0.f;
+      }
+      float row[3][4];
+      const int hh = h0 - 1 + i;
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        const int ww = col - 1 + s;
+        const bool in = hh >= 0 && hh < H && ww >= 0 && ww < W;
+        load4f<VEC>(x, img + (static_cast<int64_t>(hh) * W + ww) * C, c, C,
+                    in, row[s]);
+      }
+#pragma unroll
+      for (int di = 0; di < 3; ++di) {
+        if (i - di < 0 || i - di >= TH) continue;
+#pragma unroll
+        for (int dj = 0; dj < 3; ++dj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[di * 3 + dj][e] =
+                fmaf(row[dj][e], gq[di][e], acc[di * 3 + dj][e]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) red[tid][t * 4 + e] = acc[t][e];
+  __syncthreads();
+  // one thread per (channel group, tap, channel): the block's slots in order
+  const int64_t row_len = static_cast<int64_t>(gridDim.y) * cg_blk * 36;
+  for (int k = tid; k < cg_blk * 36; k += blockDim.x) {
+    const int gi = k / 36, te = k % 36;
+    float s = 0.f;
+    for (int u = 0; u < upb; ++u) s += red[u * cg_blk + gi][te];
+    const int t = te / 4, e = te % 4;
+    const int64_t ch =
+        (static_cast<int64_t>(blockIdx.y) * cg_blk + gi) * 4 + e;
+    partial[blockIdx.x * row_len + ch * 9 + t] = s;
+  }
+}
+
+// dw[col] = sum over the rows r of partial[r, col], col < C * 9: thread
+// (tx, ty) sums rows ty, ty + kRedY, ... in order, then ty = 0 sums the
+// kRedY results in order.
+__global__ void __launch_bounds__(32 * kRedY)
+dw3x3_wgrad_reduce(const float* __restrict__ partial, float* __restrict__ dw,
+                   int rows, int64_t row_len, int n_out) {
+  __shared__ float part[kRedY][33];
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  float s = 0.f;
+  if (col < n_out)
+    for (int r = threadIdx.y; r < rows; r += kRedY)
+      s += partial[r * row_len + col];
+  part[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < n_out) {
+    float t = 0.f;
+#pragma unroll
+    for (int y = 0; y < kRedY; ++y) t += part[y][threadIdx.x];
+    dw[col] = t;
+  }
+}
+
+template <bool VEC>
+int launch_wgrad(const float* x, const float* g, float* partial, float* dw,
+                 int H, int W, int C, int th, int cg_blk, int upb,
+                 int n_chunks, int nbx, int n_strips, int n_units,
+                 cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(nbx), static_cast<unsigned>(n_chunks));
+  const unsigned threads = static_cast<unsigned>(cg_blk * upb);
+  switch (th) {
+    case 1:
+      dw3x3_wgrad_partial<VEC, 1><<<grid, threads, 0, stream>>>(
+          x, g, partial, H, W, C, cg_blk, upb, n_strips, n_units);
+      break;
+    case 2:
+      dw3x3_wgrad_partial<VEC, 2><<<grid, threads, 0, stream>>>(
+          x, g, partial, H, W, C, cg_blk, upb, n_strips, n_units);
+      break;
+    case 4:
+      dw3x3_wgrad_partial<VEC, 4><<<grid, threads, 0, stream>>>(
+          x, g, partial, H, W, C, cg_blk, upb, n_strips, n_units);
+      break;
+    case 8:
+      dw3x3_wgrad_partial<VEC, 8><<<grid, threads, 0, stream>>>(
+          x, g, partial, H, W, C, cg_blk, upb, n_strips, n_units);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const int n_out = C * 9;
+  const int64_t row_len = static_cast<int64_t>(n_chunks) * cg_blk * 36;
+  dw3x3_wgrad_reduce<<<(n_out + 31) / 32, dim3(32, kRedY), 0, stream>>>(
+      partial, dw, nbx, row_len, n_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x, g (B,H,W,C) contiguous f32; partial: nbx * n_chunks * cg_blk * 36
+// floats of scratch; dw (C,1,3,3) contiguous f32, fully written. th rows a
+// unit, cg_blk channel groups x upb units a block (at most 128 threads),
+// n_chunks blocks across the channel groups and nbx blocks across the units
+// (kernels/depthwise_conv.wgrad_plan). vec: C % 4 == 0 and x, g 16-byte
+// aligned. Returns cudaGetLastError() after the launches (0 = launched).
+extern "C" int depthwise_conv3x3_wgrad_launch(
+    const void* x, const void* g, void* partial, void* dw, int64_t B,
+    int64_t H, int64_t W, int64_t C, int th, int cg_blk, int upb,
+    int n_chunks, int nbx, int vec, void* stream) {
+  const int64_t n_strips = (H + th - 1) / th;
+  const int64_t n_units = B * n_strips * W;
+  if (th <= 0 || cg_blk <= 0 || upb <= 0 || cg_blk * upb > 128 ||
+      nbx <= 0 || n_chunks <= 0 ||
+      n_units + static_cast<int64_t>(nbx) * upb > INT32_MAX ||
+      H * W * C > INT32_MAX || C * 9 > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* gf = static_cast<const float*>(g);
+  float* pf = static_cast<float*>(partial);
+  float* dwf = static_cast<float*>(dw);
+  const int h = static_cast<int>(H), ww = static_cast<int>(W),
+            c = static_cast<int>(C), ns = static_cast<int>(n_strips),
+            nu = static_cast<int>(n_units);
+  return vec ? launch_wgrad<true>(xf, gf, pf, dwf, h, ww, c, th, cg_blk, upb,
+                                  n_chunks, nbx, ns, nu, s)
+             : launch_wgrad<false>(xf, gf, pf, dwf, h, ww, c, th, cg_blk,
+                                   upb, n_chunks, nbx, ns, nu, s);
 }

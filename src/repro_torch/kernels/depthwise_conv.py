@@ -5,6 +5,13 @@ CUDA kernel ``csrc/depthwise_conv.cu``, the port of the Pallas kernel
 SAME padding, fp32 accumulation, output in the input dtype (f32 or bf16).
 It takes any B, H, W and C: there is no tiling contract and no fallback.
 ``plan`` picks the kernel's tile for each layer shape.
+
+Training (f32): ``DepthwiseConv3x3`` is the autograd ``Function`` around
+the kernel. Its input gradient is the same forward kernel run on the
+output gradient with the weights turned 180 degrees; its weight gradient
+is ``depthwise_conv3x3_wgrad``, a second kernel of the same source with a
+fixed summation order (no TPU counterpart: the reference lets XLA
+transpose ``lax.conv``). ``wgrad_plan`` picks its tile.
 """
 from __future__ import annotations
 
@@ -123,3 +130,142 @@ def depthwise_conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 depthwise_conv3x3.launches = 0
+
+
+# -- weight gradient --------------------------------------------------------
+
+WGRAD_BLOCKS = 4 * SMS     # one wave at the kernel's 4 blocks an SM
+WGRAD_MAX_TH = 8           # rows a unit, at most
+RED_Y = 16                 # dw3x3_wgrad_reduce's rows summed side by side
+                           # (kRedY in csrc/depthwise_conv.cu)
+
+
+class WgradPlan(NamedTuple):
+    """The weight-gradient kernel's tile for one (B, H, W, C): units of
+    ``th`` rows x 1 column x 4 channels (``n_units`` of them per channel
+    group), blocks of ``cg_blk`` channel groups x ``upb`` units, ``n_chunks``
+    blocks across the channel groups and ``nbx`` across the units; a thread
+    walks at most ``per_thread`` units. ``depth`` bounds the roundings any
+    one product goes through on its way into dw: the per-thread chain, the
+    block's sum over its ``upb`` slots and the second pass's two sums."""
+    th: int
+    cg_blk: int
+    upb: int
+    n_chunks: int
+    n_units: int
+    nbx: int
+    per_thread: int
+    depth: int
+
+
+@functools.lru_cache(maxsize=1024)
+def wgrad_plan(B: int, H: int, W: int, C: int) -> WgradPlan:
+    """Channel groups and units a block as ``plan`` picks them; th the
+    largest power of two up to WGRAD_MAX_TH that is at most H; nbx the
+    blocks needed to give every unit a thread, capped so that all
+    ``nbx * n_chunks`` blocks make about one wave (WGRAD_BLOCKS): a larger
+    map gives each thread more units, not the second pass more rows."""
+    p = plan(B, H, W, C)
+    th = 1
+    while th * 2 <= min(H, WGRAD_MAX_TH):
+        th *= 2
+    n_units = B * -(-H // th) * W
+    nbx = max(1, min(-(-n_units // p.upb), -(-WGRAD_BLOCKS // p.n_chunks)))
+    per_thread = -(-n_units // (nbx * p.upb))
+    depth = per_thread * th + p.upb + -(-nbx // RED_Y) + RED_Y
+    return WgradPlan(th, p.cg_blk, p.upb, p.n_chunks, n_units, nbx,
+                     per_thread, depth)
+
+
+def check_wgrad_args(x: torch.Tensor, g: torch.Tensor
+                     ) -> Tuple[int, int, int, int]:
+    """Validate (x, g both (B,H,W,C) contiguous float32 on one device);
+    returns (B, H, W, C). The weight gradient is f32 only: the XR nets
+    train in f32."""
+    if x.dim() != 4 or g.shape != x.shape:
+        raise ValueError(f"depthwise_conv3x3_wgrad: x and g must both be "
+                         f"(B,H,W,C), got {tuple(x.shape)} and "
+                         f"{tuple(g.shape)}")
+    if x.dtype != torch.float32 or g.dtype != torch.float32:
+        raise TypeError(f"depthwise_conv3x3_wgrad: float32 only, got "
+                        f"{x.dtype} and {g.dtype}")
+    if g.device != x.device:
+        raise ValueError("depthwise_conv3x3_wgrad: x and g on different "
+                         "devices")
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("depthwise_conv3x3_wgrad: x and g must be "
+                         "contiguous NHWC")
+    return tuple(x.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_launcher():
+    fn = _build.library("depthwise_conv").depthwise_conv3x3_wgrad_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def depthwise_conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Launch the weight-gradient kernels on CUDA tensors x, g (B,H,W,C)
+    f32: dw (C,1,3,3) f32, the same bits on every run."""
+    B, H, W, C = check_wgrad_args(x, g)
+    if x.device.type != "cuda":
+        raise ValueError("depthwise_conv3x3_wgrad kernel needs CUDA tensors")
+    dw = torch.empty((C, 1, 3, 3), dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return dw.zero_()
+    p = wgrad_plan(B, H, W, C)
+    if p.n_units + p.nbx * p.upb > 2 ** 31 - 1 or H * W * C > 2 ** 31 - 1 \
+            or p.n_chunks > 65535:
+        raise ValueError(f"depthwise_conv3x3_wgrad: {B}x{H}x{W}x{C} exceeds "
+                         "the kernel's 32-bit indices or grid")
+    partial = torch.empty(p.nbx * p.n_chunks * p.cg_blk * 36,
+                          dtype=torch.float32, device=x.device)
+    vec = C % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, g))
+    with torch.cuda.device(x.device):
+        code = _wgrad_launcher()(x.data_ptr(), g.data_ptr(),
+                                 partial.data_ptr(), dw.data_ptr(), B, H, W,
+                                 C, p.th, p.cg_blk, p.upb, p.n_chunks, p.nbx,
+                                 int(vec), _build.stream_ptr(x))
+    _build.check_launch("depthwise_conv", code)
+    depthwise_conv3x3_wgrad.launches += 1
+    return dw
+
+
+depthwise_conv3x3_wgrad.launches = 0
+
+
+def rotated(w: torch.Tensor) -> torch.Tensor:
+    """(C,1,3,3) weights turned 180 degrees: the forward on the output
+    gradient with them is the input gradient (stride 1, SAME padding)."""
+    return w.flip((-1, -2)).contiguous()
+
+
+class DepthwiseConv3x3(torch.autograd.Function):
+    """The depthwise kernel with its backward on kernels too: the input
+    gradient from ``depthwise_conv3x3`` on the output gradient with
+    ``rotated`` weights, the weight gradient from ``depthwise_conv3x3_wgrad``.
+    The output gradient is made contiguous NHWC first; the model keeps its
+    ops channels_last, so there that is no copy (``copies`` counts the
+    backward calls that had to copy)."""
+    copies = 0
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return depthwise_conv3x3(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        if not g.is_contiguous():
+            DepthwiseConv3x3.copies += 1
+            g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = depthwise_conv3x3(g, rotated(w))
+        if ctx.needs_input_grad[1]:
+            dw = depthwise_conv3x3_wgrad(x, g)
+        return dx, dw

@@ -5,7 +5,8 @@ arithmetic where that fixes the bits. The CPU path of ``kernels.ops`` runs
 them, the CPU tests hold them against ``repro.kernels.ref``, and
 ``chip_smoke.py`` holds each kernel against its plain version on the card.
 Counterpart of ``repro.kernels.ref`` (int8_matmul, depthwise_conv3x3,
-flash_attention, ssd_chunk_scan, quantize_rows).
+flash_attention, ssd_chunk_scan, quantize_rows), plus the depthwise
+convolution's weight gradient, which the reference leaves to XLA.
 """
 from __future__ import annotations
 
@@ -49,6 +50,26 @@ def depthwise_conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         for dj in range(3):
             acc = acc + xp[:, di:di + H, dj:dj + W, :] * taps[:, 3 * di + dj]
     return acc.to(x.dtype)
+
+
+def depthwise_conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of ``depthwise_conv3x3`` at input x (B,H,W,C) for
+    the output gradient g (B,H,W,C): (C,1,3,3),
+
+        dw[c, 0, di, dj] = sum_{b,h,w} xpad[b, h+di, w+dj, c] g[b, h, w, c],
+
+    xpad the input with one zero row and column on each side; each tap a
+    sum in f32 (in f64 for f64 inputs), in PyTorch's order, not the
+    kernel's. The input gradient needs no function of its own: for stride
+    1, SAME padding and 3x3 taps it is exactly the forward of g with the
+    weights turned 180 degrees, ``depthwise_conv3x3(g, w.flip(-1, -2))``."""
+    B, H, W, C = x.shape
+    dt = torch.promote_types(x.dtype, torch.float32)
+    xp = F.pad(x.to(dt), (0, 0, 1, 1, 1, 1))
+    gf = g.to(dt)
+    taps = [(xp[:, di:di + H, dj:dj + W, :] * gf).sum(dim=(0, 1, 2))
+            for di in range(3) for dj in range(3)]
+    return torch.stack(taps, dim=-1).reshape(C, 1, 3, 3)
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

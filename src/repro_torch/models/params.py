@@ -14,6 +14,9 @@ need no config. The LM trees keep the JAX layout as it is (stacked
 ``(R, in, out)`` weights used as ``x @ w``, the embedding ``(V, D)``), so
 ``lm_from_jax``/``lm_to_jax`` copy leaves and change nothing but the type.
 bfloat16 crosses as its 16 bits, so every round trip is bit-exact.
+``xr_train_to_jax``/``xr_train_from_jax`` map the XR training tree
+(parameters, BN state, AdamW moments and count) to and from the tree the
+reference checkpoints, so checkpoints cross between the packages.
 """
 from __future__ import annotations
 
@@ -166,3 +169,27 @@ def lm_to_jax(tree) -> Dict:
     for path, t in _leaves(tree):
         _set(out, path, _array(t))
     return out
+
+
+def xr_train_to_jax(state_dict: Mapping[str, torch.Tensor],
+                    m: Mapping[str, torch.Tensor],
+                    v: Mapping[str, torch.Tensor], count) -> Dict:
+    """The XR training tree as ``repro.train.loop`` checkpoints it:
+    {"params", "state", "opt": {"m", "v", "count"}}, numpy in the JAX
+    layouts. ``m``/``v`` are the AdamW moments keyed like the net's
+    parameters; the reference's ``AdamWState`` fields flatten to the same
+    ``k:m``/``k:v``/``k:count`` keys as this dict's."""
+    params, state = to_jax(state_dict)
+    return {"params": params, "state": state,
+            "opt": {"m": to_jax(m)[0], "v": to_jax(v)[0],
+                    "count": _array(torch.as_tensor(count))}}
+
+
+def xr_train_from_jax(tree) -> Tuple[Dict[str, torch.Tensor],
+                                     Dict[str, torch.Tensor],
+                                     Dict[str, torch.Tensor], torch.Tensor]:
+    """Inverse of ``xr_train_to_jax``: (state dict, m, v, count), CPU
+    tensors in the port's layouts."""
+    opt = tree["opt"]
+    return (from_jax(tree["params"], tree["state"]), from_jax(opt["m"], {}),
+            from_jax(opt["v"], {}), _tensor(opt["count"]))

@@ -13,7 +13,11 @@ activations are NCHW tensors in ``channels_last`` memory (physically NHWC),
 so every stride-1 3x3 depthwise step hands the CUDA depthwise kernel a
 C-contiguous NHWC view with no copy. The other convs and the dense heads
 stay on ``F.conv2d`` and ``torch.matmul``, as the reference keeps them on
-``lax`` outside any Pallas kernel. The losses wait for the training slice.
+``lax`` outside any Pallas kernel. On the card the depthwise kernel's
+backward is kernels too (``kernels.depthwise_conv.DepthwiseConv3x3``), and
+the ops between the kernels keep channels_last, so the output gradient
+reaches it NHWC-contiguous. The paper's losses (``circle_loss``,
+``dice_loss``) and ``iou`` take the NHWC outputs.
 """
 from __future__ import annotations
 
@@ -274,6 +278,24 @@ class XRNet(nn.Module):
             layer.mean.copy_(s["mean"] / (1 - BN_MOMENTUM))
             layer.var.copy_(s["var"] / (1 - BN_MOMENTUM))
 
+    @torch.no_grad()
+    def update_bn_state(self, new_state: Dict[str, Dict]) -> None:
+        """Write a train-mode forward's ``new_state`` (the EMA of the batch
+        statistics) into the BN buffers, detached: the EMA is built from
+        graph tensors, and a buffer holding one would keep every step's
+        graph alive."""
+        for name, s in new_state.items():
+            layer = getattr(self, name)
+            layer.mean.copy_(s["mean"].detach())
+            layer.var.copy_(s["var"].detach())
+
+    def bn_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The BN buffers as the reference's state tree, {step: {mean,
+        var}} (the module's own tensors, not copies)."""
+        return {st.name: {"mean": getattr(self, st.name).mean,
+                          "var": getattr(self, st.name).var}
+                for st in self.plan if st.op in ("conv", "dwconv") and st.bn}
+
     @staticmethod
     def _batchnorm(y, layer, train: bool, momentum: float = BN_MOMENTUM):
         if train:
@@ -367,3 +389,52 @@ class XRNet(nn.Module):
         if collect_acts:
             outputs["acts"] = collected
         return outputs, new_state
+
+
+# ---------------------------------------------------------------------------
+# losses (paper section 2.2), on the NHWC outputs
+# ---------------------------------------------------------------------------
+
+def circle_loss(outputs: Dict, batch: Dict, center_weight: float = 10.0
+                ) -> Tuple[torch.Tensor, Dict]:
+    """DetNet: weighted MSE on circle center+radius, CE on hand label."""
+    center = outputs["center"].reshape(-1, 2, 2)
+    radius = outputs["radius"]
+    mse_c = torch.mean((center - batch["center"]) ** 2)
+    mse_r = torch.mean((radius - batch["radius"]) ** 2)
+    circle = center_weight * mse_c + mse_r
+    logits = outputs["label"]
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["label"].long()[:, None])[:, 0]
+    ce = torch.mean(logz - gold)
+    return circle + ce, {"circle": circle, "label_ce": ce,
+                         "center_mse": mse_c, "radius_mse": mse_r}
+
+
+def dice_loss(outputs: Dict, batch: Dict, eps: float = 1.0
+              ) -> Tuple[torch.Tensor, Dict]:
+    """EDSNet: soft multi-class Dice over (B,H,W,C) logits vs int masks."""
+    logits = outputs["mask"]
+    C = logits.shape[-1]
+    probs = torch.softmax(logits, dim=-1)
+    onehot = F.one_hot(batch["mask"].long(), C).to(torch.float32)
+    inter = torch.sum(probs * onehot, dim=(0, 1, 2))
+    union = torch.sum(probs + onehot, dim=(0, 1, 2))
+    dice = (2 * inter + eps) / (union + eps)
+    loss = 1.0 - torch.mean(dice)
+    return loss, {"dice": 1.0 - loss}
+
+
+def iou(outputs: Dict, batch: Dict) -> torch.Tensor:
+    """Mean IoU over the classes for eval (a class absent from both the
+    prediction and the mask counts 1)."""
+    pred = torch.argmax(outputs["mask"], dim=-1)
+    C = outputs["mask"].shape[-1]
+    ious = []
+    for c in range(C):
+        p, g = pred == c, batch["mask"] == c
+        inter = torch.sum(p & g).to(torch.float32)
+        union = torch.sum(p | g).to(torch.float32)
+        ious.append(torch.where(union > 0, inter / union.clamp_min(1),
+                                torch.ones_like(union)))
+    return torch.mean(torch.stack(ious))

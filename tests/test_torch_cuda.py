@@ -365,3 +365,143 @@ def test_lm_kernels_refuse_what_they_do_not_take(cuda):
                                                dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         ssd_scan.ssd_chunk_scan(st, torch.rand(1, 2, 3))
+
+
+# ---------------------------------------------------------------------------
+# training: the depthwise backward on kernels, and no detached results
+# ---------------------------------------------------------------------------
+
+# stride-1 depthwise (B, H, W, C) of the training batches: DetNet b8 at
+# 128x128 and EDSNet b4 at 384x640 (distinct shapes)
+TRAIN_DW_SHAPES = [(8, 64, 64, 32), (8, 32, 32, 144), (8, 16, 16, 192),
+                   (8, 8, 8, 384), (8, 8, 8, 576), (8, 4, 4, 960),
+                   (4, 192, 320, 32), (4, 96, 160, 144), (4, 48, 80, 192),
+                   (4, 24, 40, 384), (4, 24, 40, 576), (4, 12, 20, 960)]
+# the wgrad plan's branches: C not a multiple of 4, C = 1, 1x1 and 3x5
+# maps (th = 1, 2), H = 12 (a short last strip), 17 channel groups
+WGRAD_EDGE_SHAPES = [(2, 5, 3, 30), (2, 4, 4, 1), (1, 1, 1, 1),
+                     (2, 3, 5, 8), (2, 12, 20, 68), (3, 9, 7, 13)]
+
+
+def _wgrad_bound(x, g):
+    """The f64 weight gradient and the kernel's rounding bound around it:
+    depth x 2^-24 x sum|x g| per tap (kernels/depthwise_conv.wgrad_plan)."""
+    exact = ref.depthwise_conv3x3_wgrad(x.double(), g.double())
+    mag = ref.depthwise_conv3x3_wgrad(x.double().abs(), g.double().abs())
+    depth = depthwise_conv.wgrad_plan(*x.shape).depth
+    return exact, depth * 2.0 ** -24 * mag
+
+
+@pytest.mark.parametrize("shape", TRAIN_DW_SHAPES + WGRAD_EDGE_SHAPES)
+def test_depthwise_wgrad_kernel_within_its_rounding_bound(cuda, shape):
+    g = _gen(sum(shape))
+    x = torch.randn(shape, generator=g).to(cuda)
+    dy = torch.randn(shape, generator=g).to(cuda)
+    before = depthwise_conv.depthwise_conv3x3_wgrad.launches
+    got = ops.depthwise_conv3x3_wgrad(x, dy)
+    again = ops.depthwise_conv3x3_wgrad(x, dy)
+    torch.cuda.synchronize()
+    assert depthwise_conv.depthwise_conv3x3_wgrad.launches == before + 2
+    assert got.shape == (shape[-1], 1, 3, 3) and got.dtype == torch.float32
+    assert torch.equal(got, again)            # fixed order: the same bits
+    exact, bound = _wgrad_bound(x, dy)
+    assert bool(((got.double() - exact).abs() <= bound).all())
+
+
+def test_depthwise_wgrad_kernel_unaligned_view(cuda):
+    """Storage starting mid-vector: the element-wise loads."""
+    g = _gen(6)
+    base = torch.randn(2 * (1 + 2 * 6 * 6 * 16), generator=g).to(cuda)
+    x = base[1:1 + 2 * 6 * 6 * 16].view(2, 6, 6, 16)
+    dy = base[-2 * 6 * 6 * 16:].view(2, 6, 6, 16)
+    exact, bound = _wgrad_bound(x, dy)
+    got = ops.depthwise_conv3x3_wgrad(x, dy)
+    assert bool(((got.double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 16, 192), (4, 24, 40, 384),
+                                   (2, 5, 3, 30)])
+def test_depthwise_function_gradients_match_plain_autograd(cuda, shape):
+    """The Function's dx (forward kernel, turned weights) and dw (wgrad
+    kernel) against autograd of the plain forward."""
+    g = _gen(shape[-1])
+    x = torch.randn(shape, generator=g).to(cuda)
+    w = torch.randn(shape[-1], 1, 3, 3, generator=g).to(cuda)
+    r = torch.randn(shape, generator=g).to(cuda)
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (ops.depthwise_conv3x3(xa, wa) * r).sum().backward()
+    xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (ref.depthwise_conv3x3(xb, wb) * r).sum().backward()
+    torch.testing.assert_close(xa.grad, xb.grad, rtol=1e-5, atol=1e-5)
+    mag = ref.depthwise_conv3x3_wgrad(x.abs(), r.abs())
+    assert bool(((wa.grad - wb.grad).abs() <= 1e-5 * mag).all())
+
+
+@pytest.fixture
+def full_f32():
+    """cuDNN convolutions in full f32 (TF32 is its default), as training
+    and chip_smoke.py run them."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = flags
+
+
+def test_xrnet_gradients_reach_every_parameter(cuda, full_f32):
+    """A smoke XRNet trained on the card: every parameter gets a finite
+    gradient, the depthwise weights and the stem a nonzero one, all within
+    1e-4 of the largest entry of the same step on the CPU."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import xr
+    cfg = get_smoke("detnet")
+    net = xr.XRNet(cfg, _gen(3), device=cuda)
+    twin = xr.XRNet(cfg, device="cpu")
+    twin.load_state_dict(net.state_dict())
+    rng = np.random.default_rng(3)
+    batch = {"image": rng.random((4, *cfg.input_hw, 3), dtype=np.float32),
+             "center": rng.random((4, 2, 2), dtype=np.float32),
+             "radius": rng.random((4, 2), dtype=np.float32),
+             "label": rng.integers(0, 2, 4).astype(np.int32)}
+    grads = {}
+    for m, dev in ((net, cuda), (twin, torch.device("cpu"))):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        outs, _ = m(b["image"], train=True)
+        xr.circle_loss(outs, b)[0].backward()
+        grads[dev.type] = {k: p.grad for k, p in m.named_parameters()}
+    gmax = max(float(t.abs().max()) for t in grads["cpu"].values())
+    for k, gc in grads["cuda"].items():
+        assert gc is not None and bool(torch.isfinite(gc).all()), k
+        assert float((gc.cpu() - grads["cpu"][k]).abs().max()) <= 1e-4 * gmax
+    for st in net.plan:
+        if xr.uses_depthwise_kernel(st) or st.name == "stem":
+            assert bool((getattr(net, st.name).w.grad != 0).any()), st.name
+
+
+def test_kernels_without_backward_refuse_autograd(cuda):
+    """flash_attention, ssd_chunk_scan, quantize_rows and int8_matmul raise
+    under autograd instead of returning a detached result; under no_grad
+    they run."""
+    q = torch.randn(1, 4, 16, 64, device=cuda, requires_grad=True)
+    st = torch.randn(1, 2, 3, 4, 5, device=cuda, requires_grad=True)
+    dc = torch.rand(1, 2, 3, device=cuda)
+    xq = torch.randn(8, 16, device=cuda, requires_grad=True)
+    a = torch.zeros(4, 4, dtype=torch.int8, device=cuda)
+    s = torch.ones(4, device=cuda, requires_grad=True)
+    calls = [lambda: ops.flash_attention(q, q, q),
+             lambda: ops.ssd_chunk_scan(st, dc),
+             lambda: ops.quantize_rows(xq),
+             lambda: ops.int8_matmul(a, a, s, s)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward kernel"):
+            call()
+    with torch.no_grad():
+        for call in calls:
+            call()
+    xb = torch.randn(1, 4, 4, 8, device=cuda, dtype=torch.bfloat16,
+                     requires_grad=True)
+    with pytest.raises(NotImplementedError, match="float32 only"):
+        ops.depthwise_conv3x3(xb, torch.randn(8, 1, 3, 3, device=cuda,
+                                              dtype=torch.bfloat16))

@@ -1,0 +1,250 @@
+"""The depthwise kernel's backward, on the CPU: the autograd ``Function``
+with its CUDA launches swapped for their plain versions, the plain weight
+gradient against ``jax`` differentiating the reference's convolution, the
+weight-gradient kernel's tile plan written out in numpy, and the CUDA
+wrappers that must refuse autograd rather than drop the gradient. The
+kernels themselves are held to their plain versions on the card in
+tests/test_torch_cuda.py and chip_smoke.py."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import xr as jxr
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.kernels import depthwise_conv as dw
+from repro_torch.kernels import ops, ref
+from repro_torch.models import xr
+
+# the 26 stride-1 depthwise shapes of the training batches, (B, H, W, C):
+# DetNet b8 at 128x128 and EDSNet b4 at 384x640
+DETNET_B8 = [(8, 64, 64, 32), (8, 32, 32, 144), (8, 16, 16, 192),
+             (8, 16, 16, 192), (8, 8, 8, 384), (8, 8, 8, 384),
+             (8, 8, 8, 384), (8, 8, 8, 384), (8, 8, 8, 576), (8, 8, 8, 576),
+             (8, 4, 4, 960), (8, 4, 4, 960), (8, 4, 4, 960)]
+EDSNET_B4 = [(4, 192, 320, 32), (4, 96, 160, 144), (4, 48, 80, 192),
+             (4, 48, 80, 192), (4, 24, 40, 384), (4, 24, 40, 384),
+             (4, 24, 40, 384), (4, 24, 40, 384), (4, 24, 40, 576),
+             (4, 24, 40, 576), (4, 12, 20, 960), (4, 12, 20, 960),
+             (4, 12, 20, 960)]
+TRAIN = sorted(set(DETNET_B8 + EDSNET_B4))
+EDGES = [(2, 5, 3, 30), (2, 4, 4, 1), (1, 1, 1, 1), (2, 3, 5, 8),
+         (2, 12, 20, 68), (3, 9, 7, 13), (1, 2, 2, 2049)]
+SHAPES = [(1, 8, 8, 8), (2, 7, 5, 12), (2, 6, 6, 30), (1, 3, 4, 1)]
+
+
+@pytest.fixture
+def plain_launches(monkeypatch):
+    """Route ``ops`` to the CUDA branch for CPU tensors and the kernel
+    launches to their plain versions, counting them."""
+    count = {"fwd": 0, "wgrad": 0}
+
+    def fwd(x, w):
+        count["fwd"] += 1
+        return ref.depthwise_conv3x3(x, w)
+
+    def wgrad(x, g):
+        dw.check_wgrad_args(x, g)
+        count["wgrad"] += 1
+        return ref.depthwise_conv3x3_wgrad(x, g)
+
+    monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(dw, "depthwise_conv3x3", fwd)
+    monkeypatch.setattr(dw, "depthwise_conv3x3_wgrad", wgrad)
+    monkeypatch.setattr(dw.DepthwiseConv3x3, "copies", 0)
+    return count
+
+
+def _inputs(shape, seed=0):
+    rng = np.random.default_rng(seed + sum(shape))
+    x, r = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            for _ in range(2))
+    w = torch.from_numpy(rng.standard_normal((shape[-1], 1, 3, 3),
+                                             dtype=np.float32))
+    return x, w, r
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_function_gradients_equal_autograd_of_plain(plain_launches, shape):
+    """dx from the forward on the output gradient with the weights turned
+    180 degrees, dw from the weight gradient: both equal autograd of the
+    plain forward (f32 sums in another order: 1e-5)."""
+    x, w, r = _inputs(shape)
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = ops.depthwise_conv3x3(xa, wa)
+    assert y.grad_fn is not None
+    (y * r).sum().backward()
+    assert plain_launches == {"fwd": 2, "wgrad": 1}
+    xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (ref.depthwise_conv3x3(xb, wb) * r).sum().backward()
+    torch.testing.assert_close(xa.grad, xb.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(wa.grad, wb.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_function_computes_only_the_gradients_asked_for(plain_launches):
+    x, w, r = _inputs((1, 6, 6, 8))
+    (ops.depthwise_conv3x3(x, w.requires_grad_()) * r).sum().backward()
+    assert plain_launches == {"fwd": 1, "wgrad": 1}
+    (ops.depthwise_conv3x3(x.requires_grad_(), w.detach()) * r).sum() \
+        .backward()
+    assert plain_launches == {"fwd": 3, "wgrad": 1}
+    with torch.no_grad():
+        assert ops.depthwise_conv3x3(x, w).grad_fn is None
+
+
+def test_function_refuses_bf16_under_autograd(plain_launches):
+    x = torch.randn(1, 4, 4, 8, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.randn(8, 1, 3, 3, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="float32 only"):
+        ops.depthwise_conv3x3(x, w)
+    with torch.no_grad():
+        ops.depthwise_conv3x3(x, w)          # inference in bf16 still runs
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(2, 16, 20, 32)])
+def test_plain_gradients_equal_jax_grad_of_the_reference_conv(shape):
+    """ref.depthwise_conv3x3_wgrad against jax's transpose of the
+    reference's lax.conv (repro.models.xr._conv, groups = C) for w, and the
+    forward with turned weights against it for x."""
+    x, w, r = _inputs(shape, seed=1)
+    C = shape[-1]
+    w_hwio = np.transpose(w.numpy(), (2, 3, 1, 0))        # (3, 3, 1, C)
+    _, vjp = jax.vjp(lambda a, b: jxr._conv(a, b, 1, C), jnp.asarray(x),
+                     jnp.asarray(w_hwio))
+    jdx, jdw = vjp(jnp.asarray(r))
+    got_dw = ref.depthwise_conv3x3_wgrad(x, r)
+    np.testing.assert_allclose(np.transpose(got_dw.numpy(), (2, 3, 1, 0)),
+                               np.asarray(jdw), rtol=1e-5, atol=1e-4)
+    got_dx = ref.depthwise_conv3x3(r, dw.rotated(w))
+    np.testing.assert_allclose(got_dx.numpy(), np.asarray(jdx), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_plain_wgrad_is_exact_in_f64():
+    """In f64 the plain weight gradient is the plain sum of products."""
+    x, _, r = _inputs((2, 5, 4, 3), seed=2)
+    got = ref.depthwise_conv3x3_wgrad(x.double(), r.double())
+    xp = np.pad(x.double().numpy(), ((0, 0), (1, 1), (1, 1), (0, 0)))
+    g = r.double().numpy()
+    for di in range(3):
+        for dj in range(3):
+            want = (xp[:, di:di + 5, dj:dj + 4, :] * g).sum(axis=(0, 1, 2))
+            np.testing.assert_allclose(got[:, 0, di, dj].numpy(), want,
+                                       rtol=1e-14)
+
+
+@pytest.mark.parametrize("name,hw", [("detnet", (128, 128)),
+                                     ("edsnet", (64, 96))])
+def test_xrnet_hands_the_backward_contiguous_gradients(plain_launches,
+                                                       monkeypatch, name, hw):
+    """The ops between the kernels stay channels_last, so every one of the
+    13 output gradients reaches the depthwise backward contiguous NHWC (no
+    copy), and every parameter gets a gradient; the gradients equal those
+    of the plain path."""
+    cfg = dataclasses.replace(get_config(name), input_hw=hw)
+    net = xr.XRNet(cfg, torch.Generator().manual_seed(0), device="cpu")
+    img = torch.rand(2, *hw, cfg.in_channels,
+                     generator=torch.Generator().manual_seed(1))
+    outs, _ = net(img, train=True)
+    sum(o.square().mean() for o in outs.values()).backward()
+    assert plain_launches == {"fwd": 26, "wgrad": 13}
+    assert dw.DepthwiseConv3x3.copies == 0
+    got = {k: p.grad.clone() for k, p in net.named_parameters()}
+    net.zero_grad(set_to_none=True)
+    monkeypatch.setattr(ops, "_on_cuda", lambda t: False)  # plain path
+    outs, _ = net(img, train=True)
+    sum(o.square().mean() for o in outs.values()).backward()
+    gmax = max(float(p.grad.abs().max()) for p in net.parameters())
+    for k, p in net.named_parameters():
+        assert float((got[k] - p.grad).abs().max()) <= 1e-5 * gmax, k
+
+
+@pytest.mark.parametrize("call", ["flash_attention", "ssd_chunk_scan",
+                                  "quantize_rows", "int8_matmul"])
+def test_cuda_branch_refuses_autograd_without_a_backward(monkeypatch, call):
+    """On CUDA the kernels without a backward raise under autograd, before
+    any launch; under no_grad they reach the kernel wrapper."""
+    reached = []
+    monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
+    for mod, fn in (("_fa", "flash_attention"), ("_ssd", "ssd_chunk_scan"),
+                    ("_q", "quantize_rows"), ("_mm", "int8_matmul")):
+        monkeypatch.setattr(getattr(ops, mod), fn,
+                            lambda *a, fn=fn: reached.append(fn))
+    q = torch.randn(1, 4, 8, 32, requires_grad=True)
+    s = torch.ones(4, requires_grad=True)
+    a = torch.zeros(4, 4, dtype=torch.int8)
+    args = {"flash_attention": (q, q, q),
+            "ssd_chunk_scan": (torch.randn(1, 2, 3, 4, 5, requires_grad=True),
+                               torch.rand(1, 2, 3)),
+            "quantize_rows": (torch.randn(4, 8, requires_grad=True),),
+            "int8_matmul": (a, a, s, s)}[call]
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        getattr(ops, call)(*args)
+    assert reached == []
+    with torch.no_grad():
+        getattr(ops, call)(*args)
+    assert reached == [call]
+
+
+def test_wgrad_checks_its_arguments():
+    x = torch.randn(1, 4, 4, 8)
+    with pytest.raises(ValueError):
+        ops.depthwise_conv3x3_wgrad(x, torch.randn(1, 4, 4, 9))
+    with pytest.raises(TypeError):
+        ops.depthwise_conv3x3_wgrad(x.double(), x.double())
+    with pytest.raises(ValueError):
+        ops.depthwise_conv3x3_wgrad(x, x.transpose(1, 2))
+
+
+# -- the weight-gradient kernel's plan, written out -------------------------
+
+def _assignment(B, H, W, C):
+    """Which (thread slot, block) sums each (unit, channel group): the
+    kernel's loop ``unit = bx * upb + slot + k * nbx * upb`` over every
+    block (bx, chunk) and slot, as a count per (unit, channel group)."""
+    p = dw.wgrad_plan(B, H, W, C)
+    cover = np.zeros((p.n_units, p.n_chunks * p.cg_blk), np.int64)
+    longest = 0
+    for bx in range(p.nbx):
+        for slot in range(p.upb):
+            units = np.arange(bx * p.upb + slot, p.n_units, p.nbx * p.upb)
+            longest = max(longest, len(units))
+            cover[units, :] += 1
+    return p, cover, longest
+
+
+@pytest.mark.parametrize("shape", TRAIN + EDGES)
+def test_wgrad_plan_covers_every_product_once(shape):
+    B, H, W, C = shape
+    p, cover, longest = _assignment(*shape)
+    assert (cover == 1).all()                  # each unit once per channel
+    assert p.n_chunks * p.cg_blk * 4 >= C      # every channel group
+    assert -(-H // p.th) * p.th >= H and p.th <= max(H, 1)
+    assert p.n_units == B * -(-H // p.th) * W
+    assert p.cg_blk * p.upb <= 128             # the kernel's launch bound
+    assert p.per_thread == longest
+    assert p.nbx <= -(-dw.WGRAD_BLOCKS // p.n_chunks)
+    assert p.n_chunks <= 65535
+    # the depth the tolerance uses: the thread's chain, the block's slots,
+    # the second pass's rows per thread and its RED_Y partial sums
+    assert p.depth == (longest * p.th + p.upb + -(-p.nbx // dw.RED_Y)
+                       + dw.RED_Y)
+
+
+@pytest.mark.parametrize("shape", TRAIN)
+def test_wgrad_plan_fills_the_card_at_training_shapes(shape):
+    """About one wave of blocks wherever the map has the units for it, and
+    a rounding depth far below 2^24 (the bound stays meaningful)."""
+    p = dw.wgrad_plan(*shape)
+    need = -(-p.n_units // p.upb) * p.n_chunks
+    assert p.nbx * p.n_chunks >= min(need, dw.WGRAD_BLOCKS // 2)
+    assert p.depth < 1000
+
+
+def test_smoke_nets_have_depthwise_kernel_steps():
+    for name in ("detnet", "edsnet"):
+        plan = xr.build_plan(get_smoke(name))
+        assert sum(map(xr.uses_depthwise_kernel, plan)) >= 1

@@ -187,7 +187,9 @@ def test_cpu_path_launches_no_kernel(rng):
     q = torch.randn(1, 2, 5, 32)
     ops.flash_attention(q, q, q)
     ops.ssd_chunk_scan(torch.randn(1, 2, 3, 4, 5), torch.rand(1, 2, 3))
+    ops.depthwise_conv3x3_wgrad(torch.randn(1, 4, 4, 8),
+                                torch.randn(1, 4, 4, 8))
     assert ops.launches() == before
-    assert set(before) == {"depthwise_conv3x3", "int8_matmul",
-                           "quantize_rows", "flash_attention",
+    assert set(before) == {"depthwise_conv3x3", "depthwise_conv3x3_wgrad",
+                           "int8_matmul", "quantize_rows", "flash_attention",
                            "ssd_chunk_scan"}

@@ -57,6 +57,15 @@ def test_entry_points_refuse_to_run_without_a_card():
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_training_entry_points_refuse_to_run_without_a_card():
+    _no_cuda()
+    from repro_torch.launch import train_xr
+    for argv in (["--arch", "detnet", "--steps", "3"],
+                 ["--arch", "edsnet", "--full"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train_xr.main(argv)
+
+
 def test_unported_architectures_raise_keyerror():
     from repro_torch.configs import get_config, get_smoke
     assert get_config("detnet").name == "detnet"
