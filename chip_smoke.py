@@ -160,8 +160,10 @@ def median_ms(fn, *args, reps=5, inner=EVENT_CALLS):
 # each (torch.cuda._sleep, device name "spin_kernel", ~0.6 ms), PAD_FRONT
 # before the work and PAD_BACK after it, left out of every sum: the
 # profiler drops the device events at a window's start, more the older the
-# process (PERF.md section 7)
-PAD_FRONT, PAD_BACK, PAD_CYCLES = 16, 4, 1_000_000
+# process and the longer the window's calls (PERF.md section 7; 16 pads lost
+# all of themselves and some work events before the training steps' calls
+# of tens of ms)
+PAD_FRONT, PAD_BACK, PAD_CYCLES = 96, 4, 1_000_000
 PAD_NAME = "spin_kernel"
 CALL_MARK = "chip_smoke_call"     # profiler range around each timed call
 FLUSH_BYTES = 96 * 2 ** 20        # written or read before each per-shape
@@ -192,8 +194,8 @@ def device_us(calls, reps=5, expect=None, attempts=3):
     operations).
     If the capture falls short, busy is None and by_name empty: "not
     measured", never a partial sum divided by ``reps``. A short window is
-    profiled again, up to ``attempts`` windows in all. Returns (busy,
-    by_name, capture), capture giving the counts checked."""
+    profiled again, up to ``attempts`` windows in all. Returns
+    (busy, by_name, capture), capture giving the counts checked."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     for fn, args in calls:
@@ -1118,6 +1120,469 @@ def train_slice(dev, gen, report, dw_shapes):
         "library_device_ms": None if None in lib_ms else sum(lib_ms)}
 
 
+# -- slice 6: LM training ----------------------------------------------------
+LT_ARCHS = {"llama3.2-1b": 2, "mamba2-1.3b": 1}   # batch at S = LM_S; Mamba
+                                 # cut to 1: at B=2 its step needs more than
+                                 # the card's 80 GB (CUDA out of memory)
+LT_STEPS = 10
+LT_LR = 3e-4                     # launch/train's default
+LT_DIMS_SHAPE = (2, 8, 2, LM_RAGGED_S)   # (B, H, K, S) of the head-dim cases
+# the backward kernels against the plain backward in f32 on the same
+# (upcast) inputs, element by element: FLASH_TOL times each gradient's
+# magnitude (its sums over |terms|: a sum's rounding is bounded by its
+# terms, not its value, and dS cancels in dP - delta), + 2^-8 |value| for
+# the bf16 outputs (ref.flash_bwd_limit); the scan's dstates bit-equal, its
+# ddecay within SCAN_BWD_TOL of sum |lam s| off the f64 sum
+SCAN_BWD_TOL = 1e-6
+# LT3: one step at one repeat, full width, f32, (B, S) small enough for an
+# f64 evaluation on the CPU (Llama's S ragged for the flash tiles, Mamba's
+# two 256-token chunks so that the scan carries a state)
+LT_TWIN = {"llama3.2-1b": (1, 300), "mamba2-1.3b": (1, 512)}
+LT_RESUME_STEPS, LT_CKPT_EVERY = 6, 3
+# kernel names in profiles, and launches per wrapper call
+LT_CNAMES = {"flash_attention": ("flash_tc_kernel",),
+             "flash_attention_bwd": ("flash_bwd_delta", "flash_bwd_dkdv",
+                                     "flash_bwd_dq"),
+             "ssd_chunk_scan": ("ssd_scan_kernel",),
+             "ssd_chunk_scan_bwd": ("ssd_scan_bwd_kernel",
+                                    "ssd_scan_bwd_reduce")}
+LT_KERNELS = {"llama3.2-1b": ("flash_attention", "flash_attention_bwd"),
+              "mamba2-1.3b": ("ssd_chunk_scan", "ssd_chunk_scan_bwd")}
+
+
+def lm_train_slice(dev, gen, report):
+    """Slice 6: LM training of full-width, full-depth Llama-3.2-1B and
+    Mamba-2-1.3B through ``launch.train.train``, the attention and the SSD
+    scan forward and backward on the kernels (LT1-LT5). Returns the
+    kernels-line entries of flash_attention_bwd and ssd_chunk_scan_bwd."""
+    import dataclasses
+    import math
+    import shutil
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models.params import flatten, unflatten
+    from repro_torch.train import loop, optim
+
+    def max_err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    # -- LT1. the kernels against their plain versions -----------------------
+    llama, mcfg = get_config("llama3.2-1b"), get_config("mamba2-1.3b")
+    H, Kv, D = llama.num_heads, llama.num_kv_heads, llama.head_dim
+    err = {"flash_attention_bwd": 0.0, "ssd_chunk_scan_bwd": 0.0}
+    cases = [(LM_B, H, K, S, D) for S in (LM_S, LM_RAGGED_S) for K in (Kv, H)]
+    cases += [(*LT_DIMS_SHAPE[:3], LT_DIMS_SHAPE[3], d) for d in fak.HEAD_DIMS
+              if d != D]
+    worst = {}
+    for B, Hh, K, S, d in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn(B, S, h, d, generator=gen).to(dev, dt)
+                           .transpose(1, 2) for h in (Hh, K, K, Hh))
+            for causal in (True, False):
+                o, lse = fak.flash_attention(q, k, v, causal, with_lse=True)
+                o2 = fak.flash_attention(q, k, v, causal)   # no lse written
+                want = ref.flash_attention(q.float(), k.float(), v.float(),
+                                           causal)
+                lim = (ref.flash_bf16_limit(want, q, k, v, causal, FLASH_TOL)
+                       if dt == torch.bfloat16
+                       else FLASH_TOL * (1 + want.abs()))
+                over = float(((o.float() - want).abs() - lim).max())
+                e_lse = max_err(lse, ref.flash_attention_lse(
+                    q.float(), k.float(), causal))
+                got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+                again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+                torch.cuda.synchronize()
+                want_g = ref.flash_attention_bwd(
+                    q.float(), k.float(), v.float(), o.float(), lse,
+                    do.float(), causal)
+                lims = ref.flash_bwd_limit(want_g, q, k, v, o, lse, do,
+                                           causal, FLASH_TOL,
+                                           dt == torch.bfloat16)
+                what = (f"B={B} H={Hh} K={K} S={S} D={d} {str(dt)[6:]} "
+                        f"causal={causal}")
+                check(over <= 0, f"flash_attention {what}: an element is "
+                      f"{over} over its bound")
+                check(torch.equal(o, o2), f"flash_attention {what}: the "
+                      "forward with and without the log-sum-exp differ")
+                check(e_lse <= FLASH_TOL * (1 + float(lse.abs().max())),
+                      f"flash_attention {what}: log-sum-exp off by {e_lse}")
+                overs = []
+                for name, g, a, w, lm_ in zip("qkv", got, again, want_g,
+                                              lims):
+                    check(torch.equal(g, a), f"flash_attention_bwd {what}: "
+                          f"d{name} differs in bits between two calls")
+                    overs.append(float(((g.float() - w).abs() - lm_).max()))
+                    check(overs[-1] <= 0, f"flash_attention_bwd {what}: a "
+                          f"d{name} element is {overs[-1]} over its bound")
+                e = max(max_err(g, w) for g, w in zip(got, want_g))
+                if (B, Hh, K, S, d, dt, causal) == (LM_B, H, Kv, LM_S, D,
+                                                    torch.bfloat16, True):
+                    err["flash_attention_bwd"] = e     # the main path's call
+                worst[what] = {"fwd_over": over, "lse_err": e_lse,
+                               "bwd_over": overs, "bwd_max_abs_err": e}
+                print(f"  LT1 flash {what}: forward {over:.3g} under/over "
+                      f"its bound, lse err {e_lse:.3g}; backward max abs "
+                      f"err {e:.3g}, bound margins "
+                      + ", ".join(f"{x:.3g}" for x in overs))
+                del o, o2, lse, want, lim, got, again, want_g, lims
+    report["lt1_flash"] = worst
+    scan_shapes = [(b, LM_S // mcfg.ssm_chunk, mcfg.ssm_heads,
+                    mcfg.ssm_head_dim, mcfg.ssm_state)
+                   for b in sorted({LM_B, LT_ARCHS["mamba2-1.3b"]})]
+    for shape in scan_shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            st = torch.randn(shape, generator=gen).to(dev, dt)
+            dc = torch.rand(shape[:3], generator=gen).to(dev)
+            g = torch.randn(shape, generator=gen).to(dev, dt)
+            out = ops.ssd_chunk_scan(st, dc)
+            ds, dd = ops.ssd_chunk_scan_bwd(g, out, dc)
+            ds2, dd2 = ops.ssd_chunk_scan_bwd(g, out, dc)
+            torch.cuda.synchronize()
+            check(torch.equal(ds, ds2) and torch.equal(dd, dd2),
+                  f"ssd_chunk_scan_bwd {shape} {dt}: two calls differ")
+            wds, wdd = ref.ssd_chunk_scan_bwd(g, out, dc)
+            check(torch.equal(ds, wds), f"ssd_chunk_scan_bwd {shape} {dt}: "
+                  "dstates not bit-equal to the plain reverse scan")
+            exact = ref.ssd_chunk_scan_bwd(g.double(), out.double(),
+                                           dc.double())[1]
+            mag = ref.ssd_chunk_scan_bwd(g.double().abs(), out.double().abs(),
+                                         dc.double())[1]
+            off = float(((dd.double() - exact).abs()
+                         / mag.clamp_min(1e-300)).max())
+            check(off <= SCAN_BWD_TOL, f"ssd_chunk_scan_bwd {shape} {dt}: "
+                  f"ddecay {off} of its magnitude off the f64 sum")
+            if dt == torch.float32 and shape[0] == LT_ARCHS["mamba2-1.3b"]:
+                err["ssd_chunk_scan_bwd"] = max(max_err(ds, wds),
+                                                max_err(dd, wdd))
+            print(f"  LT1 ssd_chunk_scan_bwd {shape} {str(dt)[6:]}: dstates "
+                  f"bit-equal, ddecay {off:.3g} of sum |lam s| off f64, "
+                  "the same bits twice")
+    print(f"LT1 backward kernels vs plain: {len(cases) * 4} flash cases "
+          f"(forward, log-sum-exp and dq/dk/dv within their bounds, the "
+          f"same bits twice, the forward the same bits with and without "
+          f"the log-sum-exp; head dims {fak.HEAD_DIMS}), "
+          f"{len(scan_shapes) * 2} scan cases")
+
+    # -- LT2. the main path: full-width, full-depth training, counted ------
+    # (each model's step is timed, LT5, while it is on the card: one model
+    # at a time, Mamba at B=1 needs ~50 GB)
+    launched, steps_report = {}, {}
+    for i, (arch, B) in enumerate(LT_ARCHS.items()):
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        counts = []
+        res = ltrain.train(cfg, steps=LT_STEPS, batch=B, seq=LM_S, lr=LT_LR,
+                           device=dev, seed=SEED + 40 + i, log_every=5,
+                           heartbeat=lambda s, t: counts.append(
+                               dict(ops.launches())))
+        params = res.params
+        torch.cuda.synchronize()
+        launches = ops.launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        fwd_k, bwd_k = LT_KERNELS[arch]
+        n = cfg.num_layers
+        before = {k: 0 for k in launches}
+        for j, now in enumerate(counts):
+            diff = {k: now[k] - before[k] for k in now}
+            check(diff == {**{k: 0 for k in now}, fwd_k: n, bwd_k: n},
+                  f"{arch} step {j}: launches {diff}, not {n} {fwd_k} and "
+                  f"{n} {bwd_k}")
+            before = now
+        for name in LT_KERNELS[arch]:
+            check(launches[name] == LT_STEPS * n, f"{arch}: {name} launched "
+                  f"{launches[name]} times in {LT_STEPS} steps")
+        check(len(res.losses) == LT_STEPS
+              and all(map(math.isfinite, res.losses)),
+              f"{arch}: losses {res.losses}")
+        for k, p in flatten(params).items():
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                  f"{arch} {k}: gradient missing or not finite")
+        # the same batch twice: its loss drops after one step (the
+        # full-width twin of tests/test_smoke_archs.py's)
+        step = loop.make_lm_step(cfg, params, lambda s: 1e-3)
+        opt = optim.adamw_init(flatten(params))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+            synthetic.token_batches(B, LM_S, cfg.vocab_size, seed=7))[0]
+            .items()}
+        opt, m0 = step(opt, batch, 0)
+        opt, m1 = step(opt, batch, 1)
+        l0, l1 = float(m0["loss"]), float(m1["loss"])
+        check(l1 < l0, f"{arch}: the same batch's loss did not drop after "
+              f"one step ({l0} -> {l1})")
+        launched[arch] = launches
+        report[f"lm_train {arch}"] = {
+            "batch": B, "seq": LM_S, "steps": LT_STEPS, "losses": res.losses,
+            "step_s": res.step_s, "peak_gib": peak, "launches": launches,
+            "same_batch_loss": [l0, l1]}
+        print(f"LT2 {arch} B={B} S={LM_S} bf16: {LT_STEPS} steps, loss "
+              f"{res.losses[0]:.4f} -> {res.losses[-1]:.4f}, the same batch "
+              f"{l0:.5f} -> {l1:.5f} after one step; {n} {fwd_k} + {n} "
+              f"{bwd_k} launches a step; peak memory {peak:.2f} GiB")
+
+        # LT5: one step's wall, device busy, idle share and kernel shares
+        names = [c for k in LT_KERNELS[arch] for c in LT_CNAMES[k]]
+        fp, by_name = wall_profile(lambda: step(opt, batch, 2), reps=2,
+                                   expect={c: n for c in names})
+        fp["step_wall_ms"] = 1e3 * statistics.median(res.step_s[1:])
+        fp["peak_gib"] = peak
+        busy = fp["device_busy_ms"]
+        if by_name:
+            for k in LT_KERNELS[arch]:
+                us = sum(v for n_, v in by_name.items()
+                         if any(c in n_ for c in LT_CNAMES[k]))
+                fp[f"{k}_us_per_launch"] = us / n
+                fp[f"{k}_share"] = us / 1e3 / busy
+        steps_report[arch] = fp
+        print(f"  LT5 training step {arch} B={B}: wall "
+              f"{fp['step_wall_ms']:.3f} ms (median of steps 2-{LT_STEPS} in "
+              f"launch.train; {fp['wall_ms']:.3f} ms alone), device busy " +
+              ("not measured" if busy is None else
+               f"{busy:.3f} ms, idle share {fp['idle_share']:.3f}, " +
+               ", ".join(f"{k} {fp[f'{k}_us_per_launch']:.1f} us a launch "
+                         f"({100 * fp[f'{k}_share']:.1f}%)"
+                         for k in LT_KERNELS[arch])))
+        for kname, us in fp["top_kernels_us"]:
+            print(f"    {us:9.1f} us  {kname[:90]}")
+        del params, res, step, opt, batch, m0, m1
+        torch.cuda.empty_cache()
+    report["lm_train_steps"] = steps_report
+
+    # -- LT3. one step at one repeat, card against the CPU, f32 ------------
+    lt3 = {}
+    for i, arch in enumerate(LT_ARCHS):
+        base = get_config(arch)
+        c32 = dataclasses.replace(base, num_layers=lm.block_period(base),
+                                  dtype="float32")
+        B, S = LT_TWIN[arch]
+        p0 = lm.init_params(c32, torch.Generator().manual_seed(SEED + 50 + i),
+                            "cpu")
+        tok = next(synthetic.token_batches(B, S, base.vocab_size, seed=3))[0]
+        out = []
+        for d, dt in ((dev, torch.float32), (torch.device("cpu"),
+                                             torch.float32),
+                      (torch.device("cpu"), torch.float64)):
+            cfg = dataclasses.replace(c32, dtype=str(dt)[6:])
+            params = {k: v.to(d, dt, copy=True)
+                      for k, v in flatten(p0).items()}
+            tree = unflatten(params)
+            for p in params.values():
+                p.requires_grad_(True)
+            batch = {k: torch.from_numpy(v).to(d) for k, v in tok.items()}
+            loss, _ = lm.lm_loss(cfg, tree, batch)
+            loss.backward()
+            out.append((float(loss.detach()), {k: p.grad.double().cpu()
+                                      for k, p in params.items()}))
+            del params, tree
+        (lc, gc), (lh, gh), (l64, g64) = out
+        gmax = max(float(g.abs().max()) for g in g64.values())
+
+        def off(g):
+            return max(float((g[k] - g64[k]).abs().max()) for k in g64)
+        e_card, e_cpu = off(gc), off(gh)
+        diff = max(float((gc[k] - gh[k]).abs().max()) for k in gh)
+        check(e_card <= GRAD_K * e_cpu + GRAD_TOL * gmax, f"LT3 {arch}: the "
+              f"card's gradients are {e_card} off the f64 ones, the CPU's "
+              f"{e_cpu} (largest entry {gmax})")
+        check(abs(lc - l64) <= GRAD_K * abs(lh - l64) + GRAD_TOL * abs(l64),
+              f"LT3 {arch}: loss {lc} (card), {lh} (CPU), {l64} (f64)")
+        lt3[arch] = {"loss_card": lc, "loss_cpu": lh, "loss_f64": l64,
+                     "grad_off_f64_card": e_card / gmax,
+                     "grad_off_f64_cpu": e_cpu / gmax,
+                     "card_vs_cpu": diff / gmax}
+        print(f"LT3 {arch} 1 repeat B={B} S={S} f32: loss card {lc} / CPU "
+              f"{lh} / f64 {l64}; gradients off the f64 ones by "
+              f"{e_card / gmax:.3g} (card) and {e_cpu / gmax:.3g} (CPU f32) "
+              f"of the largest entry {gmax:.4g}; card vs CPU "
+              f"{diff / gmax:.3g}")
+        del out, gc, gh, g64
+    report["lt3"] = lt3
+
+    # -- LT4. checkpoint and resume at two repeats -------------------------
+    ckpt_root = ROOT / "build" / "lm_ckpt"
+    lt4 = {}
+    for arch, B in LT_ARCHS.items():
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, num_layers=2 * lm.block_period(base))
+        d = ckpt_root / arch
+        shutil.rmtree(d, ignore_errors=True)
+        runs = []                                # (start, losses)
+        for seed in (SEED + 60, SEED + 61):      # the second resumes
+            torch.cuda.empty_cache()
+            res = ltrain.train(
+                cfg, steps=LT_RESUME_STEPS, batch=B, seq=LM_S, lr=LT_LR,
+                ckpt_dir=str(d), ckpt_every=LT_CKPT_EVERY, device=dev,
+                seed=seed, log_every=0)
+            runs.append((res.start, res.losses))
+            del res
+            if len(runs) == 1:
+                last = d / f"step_{LT_RESUME_STEPS:010d}"
+                check(last.is_dir(), f"LT4 {arch}: no checkpoint at step "
+                      f"{LT_RESUME_STEPS}")
+                shutil.rmtree(last)
+        (_, first), (start, again) = runs
+        check(start == LT_CKPT_EVERY and again == first[LT_CKPT_EVERY:],
+              f"LT4 {arch}: the resumed run (from {start}) took losses "
+              f"{again}, the first {first[LT_CKPT_EVERY:]}")
+        lt4[arch] = {"losses": first, "resumed": again}
+        print(f"LT4 {arch} 2 repeats B={B}: steps {LT_CKPT_EVERY}-"
+              f"{LT_RESUME_STEPS - 1} resumed from the step-{LT_CKPT_EVERY} "
+              "checkpoint repeat the first run's losses bit for bit "
+              "(deterministic algorithms off)")
+        shutil.rmtree(d, ignore_errors=True)
+    report["lt4"] = lt4
+
+    # -- LT5. the kernels alone: kernel, plain version, library, bound -----
+    def sdpa_bwd_call(q, k, v, do):
+        """The backward of F.scaled_dot_product_attention alone (a graph
+        made once, replayed): the flash backward's library yardstick."""
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        y = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True)
+        return lambda: torch.autograd.grad(y, (qs, ks, vs), do,
+                                           retain_graph=True)
+
+    def segsum_form(states, decay):
+        cs = torch.log(decay).transpose(1, 2)
+        dchunk = torch.exp(L._segsum(F.pad(cs, (1, 0))))
+        allst = torch.cat([torch.zeros_like(states[:, :1]), states], 1)
+        return torch.einsum("bhzc,bchpn->bzhpn", dchunk, allst)[:, :-1]
+
+    def segsum_bwd_call(st, dc, g):
+        """The backward of the reference model's segsum-einsum form of the
+        scan alone: the scan backward's yardstick (no library call)."""
+        sa, da = st.clone().requires_grad_(), dc.clone().requires_grad_()
+        y = segsum_form(sa, da)
+        return lambda: torch.autograd.grad(y, (sa, da), g, retain_graph=True)
+
+    def ms(busy):
+        return None if busy is None else busy / 1e3
+
+    q, k, v, do = (torch.randn(LM_B, LM_S, h, D, generator=gen).to(
+        dev, torch.bfloat16).transpose(1, 2) for h in (H, Kv, Kv, H))
+    o, lse = fak.flash_attention(q, k, v, True, with_lse=True)
+    sdpa_bwd = sdpa_bwd_call(q, k, v, do)
+    for a, b in zip(sdpa_bwd(), ops.flash_attention_bwd(q, k, v, o, lse,
+                                                        do)):
+        check(max_err(a, b) <= 5e-2 * float(b.float().abs().max()),
+              "flash_attention_bwd disagrees with SDPA's backward")
+    pairs = LM_B * H * LM_S * (LM_S + 1) // 2       # causal (q, k) pairs
+    fb_ops_ms = 5 * 2 * D * pairs / BF16_OPS_PER_S * 1e3
+    fb_bytes_ms = 2 * LM_B * LM_S * D * (4 * H + 4 * Kv) \
+        / HBM_BYTES_PER_S * 1e3 + 4 * LM_B * H * LM_S / HBM_BYTES_PER_S * 1e3
+    Bm = LT_ARCHS["mamba2-1.3b"]
+    sshape = (Bm, LM_S // mcfg.ssm_chunk, mcfg.ssm_heads, mcfg.ssm_head_dim,
+              mcfg.ssm_state)
+    st = torch.randn(sshape, generator=gen).to(dev)
+    dc = torch.rand(sshape[:3], generator=gen).to(dev) * 0.5 + 0.5
+    gs = torch.randn(sshape, generator=gen).to(dev)
+    so = ops.ssd_chunk_scan(st, dc)
+    seg_bwd = segsum_bwd_call(st, dc, gs)
+    check(max_err(seg_bwd()[0], ops.ssd_chunk_scan_bwd(gs, so, dc)[0])
+          <= 1e-3, "ssd_chunk_scan_bwd disagrees with the segsum form's")
+    n_el = st.numel()
+    sb_bytes_ms = (4 * 3 * n_el + 4 * 2 * dc.numel()) / HBM_BYTES_PER_S * 1e3
+    sb_ops_ms = 4 * n_el / FP32_OPS_PER_S * 1e3
+    times = {}
+    for name, fns, args, bound in (
+            ("flash_attention_bwd",
+             (ops.flash_attention_bwd, ref.flash_attention_bwd, sdpa_bwd),
+             (q, k, v, o, lse, do), (fb_ops_ms, fb_bytes_ms)),
+            ("ssd_chunk_scan_bwd",
+             (ops.ssd_chunk_scan_bwd, ref.ssd_chunk_scan_bwd, seg_bwd),
+             (gs, so, dc), (sb_ops_ms, sb_bytes_ms))):
+        t = {}
+        for label, fn in zip(("ms", "plain_ms", "library_ms"), fns):
+            a = () if label == "library_ms" else args
+            t[label] = median_ms(fn, *a, inner=10)
+            t[label.replace("ms", "device_ms")] = ms(device_us(
+                [(fn, a)], reps=3, expect={c: 1 for c in LT_CNAMES[name]}
+                if label == "ms" else None)[0])
+        t.update(bound_ms=max(bound), ops_ms=bound[0], bytes_ms=bound[1],
+                 bound_by="operations" if bound[0] >= bound[1] else "bytes")
+        times[name] = t
+    scan = times["ssd_chunk_scan_bwd"]
+    scan["segsum_ms"] = scan.pop("library_ms")
+    scan["segsum_device_ms"] = scan.pop("library_device_ms")
+    scan["library_ms"] = scan["library_device_ms"] = None
+    # per launch inside the training step, from its profile
+    for name, arch in (("flash_attention_bwd", "llama3.2-1b"),
+                       ("ssd_chunk_scan_bwd", "mamba2-1.3b")):
+        fp = steps_report.get(arch, {})
+        us = fp.get(f"{name}_us_per_launch")
+        times[name]["step_device_ms"] = None if us is None else us / 1e3
+    # the forward at every head dim: bf16, B=2, S=2048, 32 q / 8 kv heads
+    fwd_dims = {}
+    for d in fak.HEAD_DIMS:
+        qd, kd, vd = (torch.randn(LM_B, LM_S, h, d, generator=gen).to(
+            dev, torch.bfloat16).transpose(1, 2) for h in (H, Kv, Kv))
+        row_d = {"ms": median_ms(ops.flash_attention, qd, kd, vd),
+                 "device_ms": ms(device_us(
+                     [(ops.flash_attention, (qd, kd, vd))], reps=3,
+                     expect={"flash_tc_kernel": 1})[0]),
+                 "with_lse_device_ms": ms(device_us(
+                     [(lambda a, b, c: fak.flash_attention(
+                         a, b, c, True, with_lse=True), (qd, kd, vd))],
+                     reps=3, expect={"flash_tc_kernel": 1})[0]),
+                 "bound_ms": 4 * d * pairs / BF16_OPS_PER_S * 1e3}
+        check_bound(f"flash_attention D={d}", {
+            k: row_d[k] for k in ("ms", "device_ms", "with_lse_device_ms")},
+            row_d["bound_ms"])
+        fwd_dims[d] = row_d
+        print(f"  LT5 flash_attention forward D={d} bf16 B={LM_B} S={LM_S} "
+              f"H={H} K={Kv}: event {row_d['ms']:.4f} ms, device " + (
+                  "not measured" if row_d["device_ms"] is None else
+                  f"{row_d['device_ms']:.4f} ms") + ", with the log-sum-exp "
+              + ("not measured" if row_d["with_lse_device_ms"] is None else
+                 f"{row_d['with_lse_device_ms']:.4f} ms")
+              + f", bound {row_d['bound_ms']:.4f} ms")
+    report["lm_fwd_dims"] = fwd_dims
+    for name, t in times.items():
+        check_bound(name, {k: v for k, v in t.items() if k.endswith("ms")
+                           and k not in ("bound_ms", "ops_ms", "bytes_ms")},
+                    t["bound_ms"])
+        print(f"  LT5 time {name}: " + ", ".join(
+            f"{k} {v:.5g}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in t.items()))
+    report["lm_train_times"] = times
+
+    meta = {"flash_attention_bwd": (
+                "flash_attention.cu", "none: no TPU kernel (the reference's "
+                "LM forward is jnp code that XLA differentiates, "
+                "src/repro/models/layers.py:165)", "llama3.2-1b"),
+            "ssd_chunk_scan_bwd": (
+                "ssd_scan.cu", "none: no TPU kernel (XLA differentiates the "
+                "reference's segsum einsum, src/repro/models/layers.py:472)",
+                "mamba2-1.3b")}
+    entries = []
+    for name, (src, replaces, arch) in meta.items():
+        t = times[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": launched[arch][name],
+            "max_abs_err": err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"],
+            "plain_device_ms": t["plain_device_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "step_device_ms": t["step_device_ms"]})
+    for k in ("segsum_ms", "segsum_device_ms"):
+        entries[1][k] = times["ssd_chunk_scan_bwd"][k]
+    return entries
+
+
 def row(shape, fns, args, nbytes, op_secs, library_args=None):
     """CUDA-event times of kernel, plain version and library call (None if
     there is none; on ``library_args`` if given, else on the same inputs),
@@ -1651,6 +2116,9 @@ def main() -> None:
     # -- slice 5: XR training (T1-T4 in train_slice) -----------------------
     train_entry = train_slice(dev, gen, report, dw_shapes)
 
+    # -- slice 6: LM training (LT1-LT5 in lm_train_slice) ------------------
+    lm_train_entries = lm_train_slice(dev, gen, report)
+
     # -- 9. the kernels line -----------------------------------------------
     # depthwise: summed over the 26 stride-1 steps of one DetNet b8 and one
     # EDSNet b2 forward; int8_matmul and quantize_rows: the calibration
@@ -1691,7 +2159,7 @@ def main() -> None:
             "device_ms": device[name]["ms"],
             "plain_device_ms": device[name]["plain_ms"],
             "library_device_ms": device[name]["library_ms"]})
-    kernels += lm_entries + [train_entry]
+    kernels += lm_entries + [train_entry] + lm_train_entries
     report["kernels"] = kernels
     report["profiler_edge_loss"].append(edge_loss(t0))
     print("profiler loss at an unpadded window's start: " + "; ".join(

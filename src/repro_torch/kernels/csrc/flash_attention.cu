@@ -1,17 +1,21 @@
 // Causal / non-causal attention with an online softmax, grouped-query heads,
-// fp32 scores, running max and denominator; output in the input dtype.
-// The dtype picks the kernel, one each:
+// fp32 scores, running max and denominator; output in the input dtype, and
+// on request the f32 log-sum-exp of every query row for the backward.
+// The dtype picks the forward kernel, one each:
 //   bf16 -- flash_tc_kernel, both products on the tensor cores (wgmma);
 //   f32  -- flash_kernel, fp32 FMAs on the CUDA cores (exact f32 twin).
+// The backward (dQ, dK, dV; both dtypes) is three kernels on the CUDA cores
+// with f32 arithmetic: flash_bwd_delta, flash_bwd_dkdv and flash_bwd_dq.
 //
 // Replaces: the Pallas kernel src/repro/kernels/flash_attention.py,
 //   flash_attention (grid (B*H, nq, nk), nk sequential, VMEM scratch
 //   carrying m/l/acc across K blocks, causal blocks above the diagonal
-//   skipped, mask value -1e30).
+//   skipped, mask value -1e30). The backward has no TPU counterpart: the
+//   reference's LM forward is jnp code that XLA differentiates.
 // What bounds it on the H100: operations. A causal (B,H,S,D) attention does
 //   ~2*B*H*S^2*D multiply-adds against 4*B*H*S*D elements moved, i.e. ~S/2
 //   FLOP per byte (1024 at S=2048), far above the ridge of either the fp32
-//   CUDA cores or the bf16 tensor cores.
+//   CUDA cores or the bf16 tensor cores; the backward does 5 such products.
 // What the bf16 design does about it: the tensor cores do both products.
 //   A block of two warpgroups owns 128 query rows of one (batch, q head),
 //   64 rows per warpgroup (wgmma's M). Q stays in shared memory; 64-key K
@@ -23,22 +27,45 @@
 //   registers (fp32 m and l on raw scores; each probability one FFMA with
 //   the scale folded in and one ex2.approx); P, rounded to bf16 as the
 //   model's reference rounds its probabilities, is the register A operand of
-//   O += P V (wgmma with V read N-major from shared memory). The tiles are
-//   stored with the 128-byte (D=64) or 64-byte (D=32) swizzle that the
-//   wgmma descriptors name, so neither cp.async writes nor wgmma reads
-//   conflict on banks. Scores never leave the registers.
+//   O += P V (wgmma with V read N-major from shared memory). Scores never
+//   leave the registers.
+// Head dims: a tile's head dim is cut into 64-column regions of 128-byte
+//   rows stored with wgmma's 128-byte swizzle, then, where D is an odd
+//   multiple of 32, one 32-column region of 64-byte rows with the 64-byte
+//   swizzle (D=32: that region alone; 96: 64 + 32; 128: 2 x 64; 256: 4 x 64),
+//   so neither cp.async writes nor wgmma reads conflict on banks. Q K^T
+//   walks the regions 16 columns a wgmma; O += P V is one m64n64k16 per
+//   64-column region (m64n32k16 for the 32-column one), each on its own
+//   slice of the O accumulator. Registers: the O accumulator is D/2 f32 a
+//   thread (128 at D=256), so D <= 64 runs two blocks an SM (at most 128
+//   registers a thread) and D >= 96 one block an SM (at most 255): no
+//   spill at any D (chip_smoke.py fails the run on one).
 // What the f32 design does: one block of 128 threads owns a 64-row query
 //   tile and walks the 64-key tiles, staging K and V in shared memory as
 //   fp32; each thread owns 4 query rows x 8 key columns of the score tile
 //   and 4 rows x D/8 columns of the accumulator (register-tiled fp32 FMAs,
 //   rows reduced with warp shuffles), P through shared memory.
+// What the backward's design does (FA2's split, f32 FMAs on the CUDA cores,
+//   no atomics, so two calls give the same bits): a pre-pass sums
+//   delta = rowsum(dO o O) in f32, one warp a row; flash_bwd_dkdv gives one
+//   block to each (batch, kv head, key tile), walks the G query heads of
+//   its group and their query tiles from the diagonal up, recomputes
+//   P = exp(scale Q K^T - lse) (0 where masked) and dP = dO V^T, and sums
+//   dV += P^T dO and dK += scale dS^T Q, dS = P o (dP - delta), in its
+//   registers; flash_bwd_dq gives one block to each (batch, q head, query
+//   tile), walks the key tiles up to the diagonal and sums dQ = scale dS K.
+//   Tiles of BT rows (64; 32 at D=256, for shared memory) of Q, dO, K and V
+//   sit in shared memory as f32; 256 threads, 16 row groups x 16 column
+//   lanes, each with BT/16 rows x BT/16 columns of a score tile and BT/16
+//   rows x D/16 columns of each accumulator.
 // Shapes: any S (ragged tiles are masked: padded keys score -1e30, padded
-//   query rows are not stored), D in {32, 64}, H a multiple of the kv
-//   heads K (query head h reads kv head h / (H/K)). Tensors are read and
-//   written through their (batch, head, seq) strides with the last dim
-//   contiguous, so the model's seq-major (B,S,H,D) projections need no
-//   transposed copy; the bf16 kernel loads 16-byte rows, so its strides
-//   and base pointers must be 16-byte aligned (the wrapper checks).
+//   query rows are not stored), D in {32, 64, 96, 128, 256}, H a multiple
+//   of the kv heads K (query head h reads kv head h / (H/K)). Tensors are
+//   read and written through their (batch, head, seq) strides with the last
+//   dim contiguous, so the model's seq-major (B,S,H,D) projections need no
+//   transposed copy; the bf16 forward loads 16-byte rows, so its strides
+//   and base pointers must be 16-byte aligned (the wrapper checks). The
+//   log-sum-exp and delta are contiguous (B,H,S) f32.
 // Causal tiles: key tiles above the diagonal are never loaded, the
 //   diagonal tile is masked, and the longest query tiles are scheduled
 //   first (the query tile is the slowest grid dimension, reversed).
@@ -53,21 +80,28 @@ struct Strides {
   int64_t b, h, s;
 };
 
-// ---- f32: fp32 FMAs on the CUDA cores -------------------------------------
+constexpr float NEG_INF = -1e30f;
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16(v);
+}
+
+// ---- f32: fp32 FMAs on the CUDA cores -------------------------------------
 
 constexpr int BQ = 64;     // query rows per block
 constexpr int BK = 64;     // keys per tile
 constexpr int NT = 128;    // threads: 16 row groups x 8 column lanes
 constexpr int RG = 4;      // query rows per thread
 constexpr int CG = 8;      // key columns per thread (strided by 8)
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
 
 template <int D>
 constexpr int smem_floats() {
@@ -77,9 +111,9 @@ constexpr int smem_floats() {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int S, int G,
-             int causal, float scale, Strides sq, Strides sk, Strides sv,
-             Strides so) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int S, int G, int causal, float scale,
+             Strides sq, Strides sk, Strides sv, Strides so) {
   extern __shared__ float smem[];
   float* Qs = smem;                      // [BQ][D+1]
   float* Ks = Qs + BQ * (D + 1);         // [BK][D+1]
@@ -199,6 +233,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DC; ++j)
       ob[qi * so.s + cg + CG * j] = from_f32<T>(acc[i][j] / l[i]);
+    if (lse != nullptr && cg == 0)       // m is on scaled scores
+      lse[(static_cast<int64_t>(b) * gridDim.y + h) * S + qi] =
+          m[i] + logf(l[i]);
   }
 }
 
@@ -214,27 +251,34 @@ constexpr int BK = 64;             // keys per tile
 constexpr int STAGES = 2;          // K/V double buffer (a deeper ring: no faster)
 constexpr float LOG2E = 1.4426950408889634f;
 
+// A tile of rows x D bf16: N64 regions of 64 columns (128-byte rows, 128B
+// swizzle), then HAS32 regions of 32 columns (64-byte rows, 64B swizzle);
+// each region holds all the tile's rows.
 template <int D>
 struct Tile {
-  static constexpr int ROW = D * 2;             // bytes of one bf16 row
+  static_assert(D == 32 || D == 64 || D == 96 || D == 128 || D == 256,
+                "head dims 32, 64, 96, 128, 256");
+  static constexpr int N64 = D / 64;
+  static constexpr int HAS32 = D % 64 == 32;
   static constexpr int CHUNKS = D / 8;          // 16-byte chunks per row
-  static constexpr int ATOM = 8 * ROW;          // bytes of 8 rows (SBO)
-  static constexpr int SWIZZLE = D == 64 ? 1 : 2;   // wgmma: 128B / 64B
-  static constexpr int Q_BYTES = BQ * ROW;
-  static constexpr int KV_BYTES = BK * ROW;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
   // + 1024 to align the ring to the swizzle pattern's repeat
   static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
+  // the O accumulator is D/2 registers a thread: two blocks an SM (at most
+  // 128 registers) up to D = 64, one block (at most 255) above
+  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
 };
 
-// Byte offset of 16-byte chunk c of row r in a swizzled tile: the chunk
-// index XOR the row's position in its 1024-byte (D=64) or 512-byte (D=32)
-// swizzle repeat, as wgmma's 128B / 64B swizzle modes read it.
-template <int D>
+// Byte offset of 16-byte chunk c of row r in a ROWS-row swizzled tile: the
+// chunk index XOR the row's position in its 1024-byte (128B swizzle) or
+// 512-byte (64B swizzle) repeat, as wgmma's swizzle modes read it.
+template <int D, int ROWS>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  if constexpr (D == 64)
-    return r * 128 + ((c ^ (r & 7)) << 4);
-  else
-    return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+  constexpr int N64 = Tile<D>::N64;
+  if (c < N64 * 8)
+    return (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+  return N64 * (ROWS * 128) + r * 64 + (((c - N64 * 8) ^ ((r >> 1) & 3)) << 4);
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride
@@ -303,8 +347,9 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d (64 x N, fp32) = [d +] A (registers, bf16 fragment) B (smem, N-major)
-__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
+// d (64 x N, fp32, a slice of the accumulator) = [d +] A (registers, bf16
+// fragment) B (smem, N-major)
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float* d,
                                              const uint32_t (&a)[4],
                                              uint64_t db, int scale_d) {
   asm volatile(
@@ -326,8 +371,9 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// d (64 x N, fp32) = [d +] A (registers, bf16 fragment) B (smem, N-major)
-__device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16],
+// d (64 x N, fp32, a slice of the accumulator) = [d +] A (registers, bf16
+// fragment) B (smem, N-major)
+__device__ __forceinline__ void wgmma_rs_m64n32k16(float* d,
                                              const uint32_t (&a)[4],
                                              uint64_t db, int scale_d) {
   asm volatile(
@@ -343,15 +389,6 @@ __device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (N == 32)
-    wgmma_rs_m64n64k16(d, a, db, 1);
-  else
-    wgmma_rs_m64n32k16(d, a, db, 1);
-}
-
 // 2^x in one MUFU op (flushes denormals: a probability under 2^-126 of the
 // row's largest is 0, as it is to the bf16 PV product anyway)
 __device__ __forceinline__ float ex2(float x) {
@@ -363,6 +400,18 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Descriptor of the k16 step ``kd`` (head-dim columns 16 kd..) of rows
+// row0.. (a multiple of 8) of a ROWS-row K-major tile at ``base``.
+template <int D, int ROWS>
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, int row0, int kd) {
+  constexpr int N64 = Tile<D>::N64;
+  if (kd < N64 * 4)
+    return desc(base + (kd >> 2) * (ROWS * 128) + row0 * 128 + (kd & 3) * 32,
+                16, 1024, 1);
+  return desc(base + N64 * (ROWS * 128) + row0 * 64 + (kd - N64 * 4) * 32, 16,
+              512, 2);
 }
 
 // ROWS x D rows [row0, row0 + ROWS) of a (S, D) slab with row stride
@@ -381,18 +430,18 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
     const bool ok = row0 + r < S;
     const __nv_bfloat16* src =
         base + static_cast<int64_t>(ok ? row0 + r : 0) * stride + c * 8;
-    cp_async16(dst + swz<D>(r, c), src, ok);
+    cp_async16(dst + swz<D, ROWS>(r, c), src, ok);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, Tile<D>::MIN_BLOCKS)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, int S, int G, int causal,
-                float scale_log2, Strides sq, Strides sk, Strides sv,
-                Strides so) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
+                int G, int causal, float scale, float scale_log2, Strides sq,
+                Strides sk, Strides sv, Strides so) {
   using T = Tile<D>;
   constexpr int NO = D / 2;          // O accumulator registers per thread
   extern __shared__ uint8_t smem_raw[];
@@ -431,7 +480,6 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < NO; ++i) acc[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-  const uint64_t dq = desc(sQ + wg * 64 * T::ROW, 16, T::ATOM, T::SWIZZLE);
 
   for (int kt = 0; kt < n_kt; ++kt) {
     cp_async_wait<0>();
@@ -452,11 +500,11 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       float s[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = 0.f;
-      const uint64_t dk = desc(sK + st, 16, T::ATOM, T::SWIZZLE);
       wgmma_fence();
 #pragma unroll
       for (int kd = 0; kd < D / 16; ++kd)      // 32 bytes of head dim each
-        wgmma_ss_m64n64k16(s, dq + 2 * kd, dk + 2 * kd, kd);
+        wgmma_ss_m64n64k16(s, desc_k<D, BQ>(sQ, wg * 64, kd),
+                           desc_k<D, BK>(sK + st, 0, kd), kd);
       wgmma_commit();
       wgmma_wait0();
       reg_fence(s);
@@ -512,16 +560,25 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
         acc[j * 4 + 3] *= a1;
       }
 
-      // O += P V, 16 keys per wgmma: P's fragment for keys 16 kk.. is the
-      // score fragment's column blocks 2 kk and 2 kk + 1
+      // O += P V, 16 keys per wgmma, one per head-dim region: P's fragment
+      // for keys 16 kk.. is the score fragment's column blocks 2 kk and
+      // 2 kk + 1; region r's accumulator slice is acc[32 r..] (its columns
+      // 64 r.. in the fragment's order)
       reg_fence(acc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                                p[4 * kk + 3]};
-        wgmma_rs(acc, a, desc(sV + st + kk * 16 * T::ROW, 16, T::ATOM,
-                              T::SWIZZLE));
+#pragma unroll
+        for (int r = 0; r < T::N64; ++r)
+          wgmma_rs_m64n64k16(acc + 32 * r, a,
+                             desc(sV + st + r * (BK * 128) + kk * 16 * 128,
+                                  16, 1024, 1), 1);
+        if constexpr (T::HAS32)
+          wgmma_rs_m64n32k16(acc + 32 * T::N64, a,
+                             desc(sV + st + T::N64 * (BK * 128) + kk * 16 * 64,
+                                  16, 512, 2), 1);
       }
       wgmma_commit();
       wgmma_wait0();
@@ -544,9 +601,304 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<uint32_t*>(ob + r1 * so.s + j * 8 + cq) =
           pack_bf16(acc[j * 4 + 2] / l1, acc[j * 4 + 3] / l1);
   }
+  if (lse != nullptr && lane % 4 == 0) {  // m is on raw scores
+    float* lb = lse + (static_cast<int64_t>(b) * gridDim.x + h) * S;
+    if (r0 < S) lb[r0] = m0 * scale + logf(l0);
+    if (r1 < S) lb[r1] = m1 * scale + logf(l1);
+  }
 }
 
 }  // namespace tc
+
+// ---- backward: f32 FMAs on the CUDA cores ---------------------------------
+
+namespace bwd {
+
+constexpr int NT = 256;            // 16 row groups x 16 column lanes
+
+template <int D>
+struct Tile {
+  static constexpr int BT = D <= 128 ? 64 : 32;   // rows of a tile
+  static constexpr int RS = BT / 16;              // tile rows (and score
+                                                  // columns) per thread
+  static constexpr int DC = D / 16;               // accumulator columns
+  static constexpr int LD = D + 1;                // padded row of Q, dO, K, V
+  static constexpr int LP = BT + 1;               // padded row of P, dS
+  static constexpr int SMEM = (4 * BT * LD + 2 * BT * LP + 2 * BT) * 4;
+};
+
+// rows [row0, row0 + BT) of a (S, D) slab into a padded f32 tile; rows past
+// S are zeros
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(float* dst, const T* base,
+                                          int64_t stride, int row0, int S,
+                                          int tid) {
+  using W = Tile<D>;
+  for (int i = tid; i < W::BT * D; i += NT) {
+    const int r = i / D, d = i % D;
+    dst[r * W::LD + d] =
+        row0 + r < S ? to_f32(base[(row0 + r) * stride + d]) : 0.f;
+  }
+}
+
+// delta[row] = sum_d dO[row, d] O[row, d] in f32, one warp a (b, h, s) row,
+// lanes summed by shuffles in a fixed order
+template <typename T>
+__global__ void __launch_bounds__(NT)
+flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dO,
+                float* __restrict__ delta, int64_t rows, int H, int S, int D,
+                Strides so, Strides sdo) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (NT / 32) +
+                      threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int s = static_cast<int>(row % S);
+  const int64_t bh = row / S;
+  const int h = static_cast<int>(bh % H);
+  const int64_t b = bh / H;
+  const T* op = o + b * so.b + h * so.h + s * so.s;
+  const T* gp = dO + b * sdo.b + h * sdo.h + s * sdo.s;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) acc = fmaf(to_f32(gp[d]), to_f32(op[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// dK and dV of one (batch, kv head, key tile)
+template <typename T, int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dO,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               T* __restrict__ dk, T* __restrict__ dv, int S, int H, int G,
+               int causal, float scale, Strides sq, Strides sk, Strides sv,
+               Strides sdo, Strides sdk, Strides sdv) {
+  using W = Tile<D>;
+  constexpr int BT = W::BT, RS = W::RS, DC = W::DC, LD = W::LD, LP = W::LP;
+  extern __shared__ float smem[];
+  float* Ks = smem;                  // [BT][LD]
+  float* Vs = Ks + BT * LD;
+  float* Qs = Vs + BT * LD;
+  float* Os = Qs + BT * LD;          // dO
+  float* Ps = Os + BT * LD;          // P^T  [key][query], [BT][LP]
+  float* Ds = Ps + BT * LP;          // dS^T
+  float* Ls = Ds + BT * LP;          // lse of the tile's queries
+  float* Dl = Ls + BT;               // delta of the tile's queries
+
+  const int tid = threadIdx.x, rg = tid / 16, cl = tid % 16;
+  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * BT, n_t = (S + BT - 1) / BT;
+  load_rows<T, D>(Ks, k + b * sk.b + hk * sk.h, sk.s, k0, S, tid);
+  load_rows<T, D>(Vs, v + b * sv.b + hk * sv.h, sv.s, k0, S, tid);
+
+  float dka[RS][DC], dva[RS][DC];
+#pragma unroll
+  for (int i = 0; i < RS; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dka[i][c] = dva[i][c] = 0.f;
+
+  for (int g = 0; g < G; ++g) {
+    const int h = hk * G + g;
+    const float* lh = lse + (static_cast<int64_t>(b) * H + h) * S;
+    const float* dh = delta + (static_cast<int64_t>(b) * H + h) * S;
+    for (int qt = causal ? kt : 0; qt < n_t; ++qt) {
+      const int q0 = qt * BT;
+      __syncthreads();               // the last tile's readers are done
+      load_rows<T, D>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
+      load_rows<T, D>(Os, dO + b * sdo.b + h * sdo.h, sdo.s, q0, S, tid);
+      for (int i = tid; i < BT; i += NT) {
+        Ls[i] = q0 + i < S ? lh[q0 + i] : 0.f;
+        Dl[i] = q0 + i < S ? dh[q0 + i] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T: keys rg RS + i, queries cl + 16 j
+      float s[RS][RS], dp[RS][RS];
+#pragma unroll
+      for (int i = 0; i < RS; ++i)
+#pragma unroll
+        for (int j = 0; j < RS; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float kr[RS], vr[RS], qc[RS], oc[RS];
+#pragma unroll
+        for (int i = 0; i < RS; ++i) {
+          kr[i] = Ks[(rg * RS + i) * LD + d];
+          vr[i] = Vs[(rg * RS + i) * LD + d];
+          qc[i] = Qs[(cl + 16 * i) * LD + d];
+          oc[i] = Os[(cl + 16 * i) * LD + d];
+        }
+#pragma unroll
+        for (int i = 0; i < RS; ++i)
+#pragma unroll
+          for (int j = 0; j < RS; ++j) {
+            s[i][j] = fmaf(kr[i], qc[j], s[i][j]);
+            dp[i][j] = fmaf(vr[i], oc[j], dp[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < RS; ++i)
+#pragma unroll
+        for (int j = 0; j < RS; ++j) {
+          const int key = k0 + rg * RS + i, jq = cl + 16 * j, qi = q0 + jq;
+          const bool ok = key < S && qi < S && (!causal || key <= qi);
+          const float p = ok ? expf(s[i][j] * scale - Ls[jq]) : 0.f;
+          Ps[(rg * RS + i) * LP + jq] = p;
+          Ds[(rg * RS + i) * LP + jq] = p * (dp[i][j] - Dl[jq]);
+        }
+      __syncthreads();
+
+      // dV += P^T dO, dK += dS^T Q: keys rg RS + i, columns cl + 16 c
+#pragma unroll 4
+      for (int j = 0; j < BT; ++j) {
+        float pr[RS], dr[RS], oc[DC], qc[DC];
+#pragma unroll
+        for (int i = 0; i < RS; ++i) {
+          pr[i] = Ps[(rg * RS + i) * LP + j];
+          dr[i] = Ds[(rg * RS + i) * LP + j];
+        }
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          oc[c] = Os[j * LD + cl + 16 * c];
+          qc[c] = Qs[j * LD + cl + 16 * c];
+        }
+#pragma unroll
+        for (int i = 0; i < RS; ++i)
+#pragma unroll
+          for (int c = 0; c < DC; ++c) {
+            dva[i][c] = fmaf(pr[i], oc[c], dva[i][c]);
+            dka[i][c] = fmaf(dr[i], qc[c], dka[i][c]);
+          }
+      }
+    }
+  }
+
+  T* dkb = dk + b * sdk.b + hk * sdk.h;
+  T* dvb = dv + b * sdv.b + hk * sdv.h;
+#pragma unroll
+  for (int i = 0; i < RS; ++i) {
+    const int key = k0 + rg * RS + i;
+    if (key >= S) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      dkb[key * sdk.s + cl + 16 * c] = from_f32<T>(dka[i][c] * scale);
+      dvb[key * sdv.s + cl + 16 * c] = from_f32<T>(dva[i][c]);
+    }
+  }
+}
+
+// dQ of one (batch, q head, query tile)
+template <typename T, int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dO,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             T* __restrict__ dq, int S, int H, int G, int causal, float scale,
+             Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq) {
+  using W = Tile<D>;
+  constexpr int BT = W::BT, RS = W::RS, DC = W::DC, LD = W::LD, LP = W::LP;
+  extern __shared__ float smem[];
+  float* Qs = smem;                  // [BT][LD]
+  float* Os = Qs + BT * LD;          // dO
+  float* Ks = Os + BT * LD;
+  float* Vs = Ks + BT * LD;
+  float* Ds = Vs + BT * LD;          // dS [query][key], [BT][LP]
+  float* Ls = Ds + 2 * BT * LP;
+  float* Dl = Ls + BT;
+
+  const int tid = threadIdx.x, rg = tid / 16, cl = tid % 16;
+  const int n_t = (S + BT - 1) / BT;
+  const int qt = n_t - 1 - static_cast<int>(blockIdx.x);   // longest first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / G;
+  const int q0 = qt * BT;
+  load_rows<T, D>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
+  load_rows<T, D>(Os, dO + b * sdo.b + h * sdo.h, sdo.s, q0, S, tid);
+  const int64_t lrow = (static_cast<int64_t>(b) * H + h) * S;
+  for (int i = tid; i < BT; i += NT) {
+    Ls[i] = q0 + i < S ? lse[lrow + q0 + i] : 0.f;
+    Dl[i] = q0 + i < S ? delta[lrow + q0 + i] : 0.f;
+  }
+
+  float dqa[RS][DC];
+#pragma unroll
+  for (int i = 0; i < RS; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dqa[i][c] = 0.f;
+
+  const int n_kt = causal ? qt + 1 : n_t;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BT;
+    __syncthreads();
+    load_rows<T, D>(Ks, k + b * sk.b + hk * sk.h, sk.s, k0, S, tid);
+    load_rows<T, D>(Vs, v + b * sv.b + hk * sv.h, sv.s, k0, S, tid);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: queries rg RS + i, keys cl + 16 j
+    float s[RS][RS], dp[RS][RS];
+#pragma unroll
+    for (int i = 0; i < RS; ++i)
+#pragma unroll
+      for (int j = 0; j < RS; ++j) s[i][j] = dp[i][j] = 0.f;
+    // two d steps of loads in flight: at four, ptxas held the kernel to 128
+    // registers and spilled at D = 96 and 128
+#pragma unroll 2
+    for (int d = 0; d < D; ++d) {
+      float qr[RS], orw[RS], kc[RS], vc[RS];
+#pragma unroll
+      for (int i = 0; i < RS; ++i) {
+        qr[i] = Qs[(rg * RS + i) * LD + d];
+        orw[i] = Os[(rg * RS + i) * LD + d];
+        kc[i] = Ks[(cl + 16 * i) * LD + d];
+        vc[i] = Vs[(cl + 16 * i) * LD + d];
+      }
+#pragma unroll
+      for (int i = 0; i < RS; ++i)
+#pragma unroll
+        for (int j = 0; j < RS; ++j) {
+          s[i][j] = fmaf(qr[i], kc[j], s[i][j]);
+          dp[i][j] = fmaf(orw[i], vc[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < RS; ++i)
+#pragma unroll
+      for (int j = 0; j < RS; ++j) {
+        const int iq = rg * RS + i, qi = q0 + iq, key = k0 + cl + 16 * j;
+        const bool ok = key < S && qi < S && (!causal || key <= qi);
+        const float p = ok ? expf(s[i][j] * scale - Ls[iq]) : 0.f;
+        Ds[iq * LP + cl + 16 * j] = p * (dp[i][j] - Dl[iq]);
+      }
+    __syncthreads();
+
+    // dQ += dS K: queries rg RS + i, columns cl + 16 c
+#pragma unroll 4
+    for (int j = 0; j < BT; ++j) {
+      float dr[RS], kc[DC];
+#pragma unroll
+      for (int i = 0; i < RS; ++i) dr[i] = Ds[(rg * RS + i) * LP + j];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) kc[c] = Ks[j * LD + cl + 16 * c];
+#pragma unroll
+      for (int i = 0; i < RS; ++i)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) dqa[i][c] = fmaf(dr[i], kc[c], dqa[i][c]);
+    }
+  }
+
+  T* dqb = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int i = 0; i < RS; ++i) {
+    const int qi = q0 + rg * RS + i;
+    if (qi >= S) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      dqb[qi * sdq.s + cl + 16 * c] = from_f32<T>(dqa[i][c] * scale);
+  }
+}
+
+}  // namespace bwd
 
 // Dynamic shared memory above 48 KB must be asked for; once per device.
 template <typename Kernel>
@@ -564,8 +916,9 @@ int allow_smem(Kernel kernel, size_t bytes, uint64_t* done) {
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               int64_t B, int64_t H, int64_t S, int64_t G, int causal,
-               float scale, const Strides* st, cudaStream_t stream) {
+               float* lse, int64_t B, int64_t H, int64_t S, int64_t G,
+               int causal, float scale, const Strides* st,
+               cudaStream_t stream) {
   constexpr size_t smem = smem_floats<D>() * sizeof(float);
   static uint64_t done = 0;
   const int e = allow_smem(flash_kernel<float, D>, smem, &done);
@@ -574,7 +927,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
   flash_kernel<float, D><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<const float*>(v), static_cast<float*>(o), lse,
       static_cast<int>(S), static_cast<int>(G), causal, scale, st[0], st[1],
       st[2], st[3]);
   return static_cast<int>(cudaGetLastError());
@@ -582,8 +935,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                int64_t B, int64_t H, int64_t S, int64_t G, int causal,
-                float scale, const Strides* st, cudaStream_t stream) {
+                float* lse, int64_t B, int64_t H, int64_t S, int64_t G,
+                int causal, float scale, const Strides* st,
+                cudaStream_t stream) {
   constexpr size_t smem = tc::Tile<D>::SMEM;
   static uint64_t done = 0;
   const int e = allow_smem(tc::flash_tc_kernel<D>, smem, &done);
@@ -594,32 +948,148 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<int>(S), static_cast<int>(G), causal, scale * tc::LOG2E,
-      st[0], st[1], st[2], st[3]);
+      lse, static_cast<int>(S), static_cast<int>(G), causal, scale,
+      scale * tc::LOG2E, st[0], st[1], st[2], st[3]);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_fwd(int dtype, const void* q, const void* k, const void* v,
+               void* o, float* lse, int64_t B, int64_t H, int64_t S,
+               int64_t G, int causal, float scale, const Strides* st,
+               cudaStream_t stream) {
+  return dtype == 0
+             ? launch_f32<D>(q, k, v, o, lse, B, H, S, G, causal, scale, st,
+                             stream)
+             : launch_bf16<D>(q, k, v, o, lse, B, H, S, G, causal, scale, st,
+                              stream);
+}
+
+// st: q, k, v, o, dO, dq, dk, dv
+template <typename T, int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const float* lse, const void* dO, float* delta, void* dq,
+               void* dk, void* dv, int64_t B, int64_t H, int64_t S,
+               int64_t G, int causal, float scale, const Strides* st,
+               cudaStream_t stream) {
+  using W = bwd::Tile<D>;
+  static uint64_t done_kv = 0, done_q = 0;
+  int e = allow_smem(bwd::flash_bwd_dkdv<T, D>, W::SMEM, &done_kv);
+  if (e) return e;
+  e = allow_smem(bwd::flash_bwd_dq<T, D>, W::SMEM, &done_q);
+  if (e) return e;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(dO);
+  const int64_t rows = B * H * S;
+  bwd::flash_bwd_delta<T><<<static_cast<unsigned>((rows + 7) / 8), bwd::NT, 0,
+                            stream>>>(
+      static_cast<const T*>(o), gt, delta, rows, static_cast<int>(H),
+      static_cast<int>(S), D, st[3], st[4]);
+  e = static_cast<int>(cudaGetLastError());
+  if (e) return e;
+  const unsigned n_t = static_cast<unsigned>((S + W::BT - 1) / W::BT);
+  bwd::flash_bwd_dkdv<T, D><<<dim3(n_t, static_cast<unsigned>(H / G),
+                                   static_cast<unsigned>(B)),
+                              bwd::NT, W::SMEM, stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<int>(S), static_cast<int>(H), static_cast<int>(G), causal,
+      scale, st[0], st[1], st[2], st[4], st[6], st[7]);
+  e = static_cast<int>(cudaGetLastError());
+  if (e) return e;
+  bwd::flash_bwd_dq<T, D><<<dim3(n_t, static_cast<unsigned>(H),
+                                 static_cast<unsigned>(B)),
+                            bwd::NT, W::SMEM, stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), static_cast<int>(S),
+      static_cast<int>(H), static_cast<int>(G), causal, scale, st[0], st[1],
+      st[2], st[4], st[5]);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd_dt(int dtype, const void* q, const void* k, const void* v,
+                  const void* o, const float* lse, const void* dO,
+                  float* delta, void* dq, void* dk, void* dv, int64_t B,
+                  int64_t H, int64_t S, int64_t G, int causal, float scale,
+                  const Strides* st, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_bwd<float, D>(q, k, v, o, lse, dO, delta, dq, dk, dv, B, H,
+                                S, G, causal, scale, st, stream);
+  return launch_bwd<__nv_bfloat16, D>(q, k, v, o, lse, dO, delta, dq, dk, dv,
+                                      B, H, S, G, causal, scale, st, stream);
 }
 
 }  // namespace
 
 // q (B,H,S,D), k and v (B,H/G,S,D), o (B,H,S,D), each addressed through
-// strides[12] = {b, h, s} of q, k, v, o (element strides; D is contiguous).
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = launched).
+// strides[12] = {b, h, s} of q, k, v, o (element strides; D is contiguous);
+// lse, if not null, receives the f32 log-sum-exp of the scaled scores of
+// every query row, contiguous (B,H,S). dtype: 0 = float32, 1 = bfloat16.
+// Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int64_t B,
-                                      int64_t H, int64_t S, int64_t D,
-                                      int64_t G, int causal, float scale,
-                                      const int64_t* strides, int dtype,
-                                      void* stream) {
+                                      const void* v, void* o, float* lse,
+                                      int64_t B, int64_t H, int64_t S,
+                                      int64_t D, int64_t G, int causal,
+                                      float scale, const int64_t* strides,
+                                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides st[4] = {{strides[0], strides[1], strides[2]},
-                         {strides[3], strides[4], strides[5]},
-                         {strides[6], strides[7], strides[8]},
-                         {strides[9], strides[10], strides[11]}};
-  if (D != 32 && D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return D == 32 ? launch_f32<32>(q, k, v, o, B, H, S, G, causal, scale, st, s)
-                   : launch_f32<64>(q, k, v, o, B, H, S, G, causal, scale, st, s);
-  return D == 32 ? launch_bf16<32>(q, k, v, o, B, H, S, G, causal, scale, st, s)
-                 : launch_bf16<64>(q, k, v, o, B, H, S, G, causal, scale, st, s);
+  Strides st[4];
+  for (int i = 0; i < 4; ++i)
+    st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  switch (D) {
+    case 32:
+      return launch_fwd<32>(dtype, q, k, v, o, lse, B, H, S, G, causal, scale,
+                            st, s);
+    case 64:
+      return launch_fwd<64>(dtype, q, k, v, o, lse, B, H, S, G, causal, scale,
+                            st, s);
+    case 96:
+      return launch_fwd<96>(dtype, q, k, v, o, lse, B, H, S, G, causal, scale,
+                            st, s);
+    case 128:
+      return launch_fwd<128>(dtype, q, k, v, o, lse, B, H, S, G, causal,
+                             scale, st, s);
+    case 256:
+      return launch_fwd<256>(dtype, q, k, v, o, lse, B, H, S, G, causal,
+                             scale, st, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward of flash_attention_launch: dq (B,H,S,D), dk and dv
+// (B,H/G,S,D) from q, k, v, the forward's o and lse, and dO (B,H,S,D);
+// delta is a (B,H,S) f32 scratch. strides[24] = {b, h, s} of q, k, v, o,
+// dO, dq, dk, dv. Three launches in stream order (delta, dK/dV, dQ);
+// returns the first launch error (0 = all launched).
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const float* lse, const void* dO, float* delta, void* dq, void* dk,
+    void* dv, int64_t B, int64_t H, int64_t S, int64_t D, int64_t G,
+    int causal, float scale, const int64_t* strides, int dtype,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Strides st[8];
+  for (int i = 0; i < 8; ++i)
+    st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  switch (D) {
+    case 32:
+      return launch_bwd_dt<32>(dtype, q, k, v, o, lse, dO, delta, dq, dk, dv,
+                               B, H, S, G, causal, scale, st, s);
+    case 64:
+      return launch_bwd_dt<64>(dtype, q, k, v, o, lse, dO, delta, dq, dk, dv,
+                               B, H, S, G, causal, scale, st, s);
+    case 96:
+      return launch_bwd_dt<96>(dtype, q, k, v, o, lse, dO, delta, dq, dk, dv,
+                               B, H, S, G, causal, scale, st, s);
+    case 128:
+      return launch_bwd_dt<128>(dtype, q, k, v, o, lse, dO, delta, dq, dk,
+                                dv, B, H, S, G, causal, scale, st, s);
+    case 256:
+      return launch_bwd_dt<256>(dtype, q, k, v, o, lse, dO, delta, dq, dk,
+                                dv, B, H, S, G, causal, scale, st, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,4 +1,5 @@
-"""Causal / non-causal attention with an online softmax, on the card.
+"""Causal / non-causal attention with an online softmax, on the card, and
+its backward.
 
 CUDA kernels ``csrc/flash_attention.cu``, the port of the Pallas kernel
 ``repro.kernels.flash_attention.flash_attention``: scale 1/sqrt(D), fp32
@@ -9,30 +10,43 @@ to bf16 before the PV product as the model's reference does; f32 runs fp32
 FMAs on the CUDA cores. Both take what the Pallas kernel does not: any S
 (no tiling contract), grouped-query k/v with fewer heads than q, and strided
 (B,H,S,D) views such as the transpose of the model's seq-major (B,S,H,D)
-projections.
+projections. The kernels take the head dims of every config in the repo,
+``HEAD_DIMS``; the plain version on the CPU takes any.
+
+Training: ``FlashAttention`` is the autograd ``Function`` around the kernel.
+Its forward also writes each query row's f32 log-sum-exp; its backward,
+``flash_attention_bwd`` (no TPU counterpart: the reference's forward is jnp
+code that XLA differentiates), is three launches of the same source on the
+CUDA cores in f32 (delta = rowsum(dO o O), dK/dV per key tile, dQ per query
+tile), with no atomics, so two calls give the same bits.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Llama-3.2-1B's head dim, and its smoke config's (the CPU tests run the
-# smoke model through the same argument checks)
-HEAD_DIMS = (32, 64)
+# the plain version also takes f64 (an f64 evaluation is the yardstick of
+# the f32 ones); the kernels take ``_DTYPES``
+_PLAIN_DTYPES = (*_DTYPES, torch.float64)
+# the head dims the kernels are built for: those of every config in the
+# repo (smoke 32; Llama, Whisper 64; Phi-3-vision 96; DeepSeek, Yi,
+# Mixtral, Grok, Jamba 128; Gemma-2 256)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                ) -> Tuple[int, int, int, int, int]:
     """Validate q (B,H,S,D) and k, v (B,K,S,D) with K dividing H, one dtype
-    (f32 or bf16), one device, the last dim contiguous; returns
-    (B, H, S, D, H // K). Raises on anything else."""
+    (f32, bf16 or f64), one device, the last dim contiguous; returns
+    (B, H, S, D, H // K). Raises on anything else. Any D and f64: the
+    kernels' head dims and dtypes are checked by ``check_kernel_args``."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention: q, k, v must be (B,H,S,D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -47,11 +61,11 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if K == 0 or H % K:
         raise ValueError(f"flash_attention: {K} kv heads do not divide "
                          f"{H} query heads")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: q, k, v must all be float32 or "
-                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in _PLAIN_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k, v must all be float32, "
+                        f"bfloat16 or float64, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v on different devices")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
@@ -59,10 +73,52 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return B, H, S, D, H // K
 
 
+def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                      ) -> Tuple[int, int, int, int, int]:
+    """``check_args``, then what the kernels add: CUDA tensors in f32 or
+    bf16, a head dim in ``HEAD_DIMS`` and a grid the card can launch."""
+    B, H, S, D, G = check_args(q, k, v)
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: the kernels take float32 or "
+                        f"bfloat16, got {q.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in the "
+                         f"kernels' {HEAD_DIMS}")
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention kernel needs CUDA tensors")
+    if H > 65535 or B > 65535 or -(-S // 32) > 65535:
+        raise ValueError(f"flash_attention: B={B}, H={H}, S={S} exceed the "
+                         "kernel's grid")
+    return B, H, S, D, G
+
+
+def _strides(*ts) -> ctypes.Array:
+    return (ctypes.c_int64 * (3 * len(ts)))(*(t.stride(i) for t in ts
+                                               for i in range(3)))
+
+
+def _seq_major(B: int, S: int, H: int, D: int, like: torch.Tensor
+               ) -> torch.Tensor:
+    """An empty (B,H,S,D) view of a contiguous (B,S,H,D) tensor, the layout
+    of the model's projections."""
+    return torch.empty((B, S, H, D), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.library("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launcher():
+    fn = _build.library("flash_attention").flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 5
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -70,36 +126,110 @@ def _launcher():
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, with_lse: bool = False):
     """Launch the kernel on CUDA tensors. Returns (B,H,S,D) in q's dtype,
     a view of a (B,S,H,D) contiguous tensor, so ``out.transpose(1, 2)``
-    is the model's seq-major layout without a copy."""
-    B, H, S, D, G = check_args(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError("flash_attention kernel needs CUDA tensors")
-    if H > 65535 or B > 65535 or -(-S // 64) > 65535:
-        raise ValueError(f"flash_attention: B={B}, H={H}, S={S} exceed the "
-                         "kernel's grid")
+    is the model's seq-major layout without a copy; with ``with_lse`` also
+    the f32 log-sum-exp of each query row's scaled scores, (B,H,S) (else
+    the kernel is given a null pointer and writes none)."""
+    B, H, S, D, G = check_kernel_args(q, k, v)
     if q.dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3))
             for t in (q, k, v)):
         raise ValueError("flash_attention: the bf16 kernel loads 16-byte "
                          "rows: base pointers and (batch, head, seq) strides "
                          "must be 16-byte aligned")
-    o = torch.empty((B, S, H, D), dtype=q.dtype,
-                    device=q.device).transpose(1, 2)
+    o = _seq_major(B, S, H, D, q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if o.numel() == 0:
-        return o
-    strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (q, k, v, o)
-                                      for i in range(3)))
+        return (o, lse) if with_lse else o
     with torch.cuda.device(q.device):
         code = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           o.data_ptr(), B, H, S, D, G, int(causal),
-                           1.0 / math.sqrt(D), strides, _DTYPES[q.dtype],
-                           _build.stream_ptr(q))
+                           o.data_ptr(), None if lse is None
+                           else lse.data_ptr(), B, H, S, D, G, int(causal),
+                           1.0 / math.sqrt(D), _strides(q, k, v, o),
+                           _DTYPES[q.dtype], _build.stream_ptr(q))
     _build.check_launch("flash_attention", code)
     flash_attention.launches += 1
-    return o
+    return (o, lse) if with_lse else o
 
 
 flash_attention.launches = 0
+
+
+def check_bwd_args(q, k, v, o, lse, do) -> Tuple[int, int, int, int, int]:
+    """Validate the backward's inputs: q, k, v as the kernel forward takes
+    them, o and do (B,H,S,D) in q's dtype with the head dim contiguous, lse
+    (B,H,S) f32 contiguous (f64 for f64 q), all on one device."""
+    B, H, S, D, G = check_args(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention_bwd: {name} must be "
+                             f"{tuple(q.shape)} {q.dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention_bwd: {name}'s head dim must "
+                             "be contiguous")
+    lse_dt = torch.promote_types(q.dtype, torch.float32)
+    if tuple(lse.shape) != (B, H, S) or lse.dtype != lse_dt \
+            or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous "
+                         f"({B},{H},{S}) {lse_dt}, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    if any(t.device != q.device for t in (o, lse, do)):
+        raise ValueError("flash_attention_bwd: inputs on different devices")
+    return B, H, S, D, G
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``flash_attention`` for the output
+    gradient ``do``, from the forward's ``o`` and ``lse``: three launches on
+    CUDA tensors, in q's dtype, each a view of a seq-major contiguous
+    tensor as the forward's output is."""
+    check_kernel_args(q, k, v)
+    B, H, S, D, G = check_bwd_args(q, k, v, o, lse, do)
+    dq = _seq_major(B, S, H, D, q)
+    dk = _seq_major(B, S, H // G, D, q)
+    dv = _seq_major(B, S, H // G, D, q)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        code = _bwd_launcher()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, S, D, G, int(causal),
+            1.0 / math.sqrt(D), _strides(q, k, v, o, do, dq, dk, dv),
+            _DTYPES[q.dtype], _build.stream_ptr(q))
+    _build.check_launch("flash_attention", code)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """The attention kernel with its backward on kernels too: the forward
+    saves its output and log-sum-exp, the backward is
+    ``flash_attention_bwd``. An output gradient whose head dim is not
+    contiguous is copied first (the kernels read rows of it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = flash_attention(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do) -> Tuple[Optional[torch.Tensor], ...]:
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal)
+        return dq, dk, dv, None

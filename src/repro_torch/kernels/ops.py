@@ -7,12 +7,14 @@ take raises. Arguments are validated the same way on both devices, so the
 CPU tests exercise the checks the card relies on. Each kernel wrapper counts
 its launches (``<module>.<function>.launches``).
 
-Gradients: on CUDA, ``depthwise_conv3x3`` runs through the autograd
-``Function`` whose backward is kernels too (f32). The other kernels have
-no backward, and a kernel fills its output through a raw pointer, so the
-result would carry no graph: on CUDA they raise when autograd would need
-one, rather than silently drop the gradient. On the CPU every function is
-its plain version, which autograd differentiates.
+Gradients: on CUDA, ``depthwise_conv3x3``, ``flash_attention`` and
+``ssd_chunk_scan`` run through autograd ``Function``s whose backward is
+kernels too (``flash_attention_bwd``, ``ssd_chunk_scan_bwd``; the depthwise
+backward in f32). The INT8 kernels have no backward, and a kernel fills its
+output through a raw pointer, so the result would carry no graph: on CUDA
+they raise when autograd would need one, rather than silently drop the
+gradient. On the CPU every function is its plain version, which autograd
+differentiates.
 """
 from __future__ import annotations
 
@@ -30,9 +32,9 @@ KERNELS = {"depthwise_conv3x3": _dw.depthwise_conv3x3,
            "int8_matmul": _mm.int8_matmul,
            "quantize_rows": _q.quantize_rows,
            "flash_attention": _fa.flash_attention,
-           "ssd_chunk_scan": _ssd.ssd_chunk_scan}
-# the port's next slice, LM training, adds these kernels' backward
-LM_BACKWARD = "yet (the LM-training slice adds it, ROADMAP Queue 1)"
+           "flash_attention_bwd": _fa.flash_attention_bwd,
+           "ssd_chunk_scan": _ssd.ssd_chunk_scan,
+           "ssd_chunk_scan_bwd": _ssd.ssd_chunk_scan_bwd}
 
 
 def _on_cuda(t) -> bool:
@@ -42,10 +44,14 @@ def _on_cuda(t) -> bool:
     return t.device.type == "cuda"
 
 
+def _needs_graph(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _no_graph(name: str, why: str, *tensors) -> None:
     """Raise if autograd would need a graph through a CUDA kernel that has
     no backward (its result would come back detached)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if _needs_graph(*tensors):
         raise RuntimeError(
             f"{name} on CUDA has no backward kernel {why}, and an input "
             "requires grad: run it under torch.no_grad() or detach the "
@@ -95,22 +101,45 @@ def quantize_rows(x):
 
 def flash_attention(q, k, v, causal: bool = True):
     """Attention of q (B,H,S,D) over k, v (B,K,S,D), K dividing H; any S,
-    strided views allowed. Returns (B,H,S,D) in q's dtype."""
+    strided views allowed. Returns (B,H,S,D) in q's dtype. On CUDA under
+    autograd it runs through ``FlashAttention`` (the forward also writes the
+    log-sum-exp the backward reads); otherwise the forward kernel alone."""
     if _on_cuda(q):
-        _no_graph("flash_attention", LM_BACKWARD, q, k, v)
+        if _needs_graph(q, k, v):
+            return _fa.FlashAttention.apply(q, k, v, causal)
         return _fa.flash_attention(q, k, v, causal)
     _fa.check_args(q, k, v)
     return ref.flash_attention(q, k, v, causal)
 
 
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention`` from its output ``o``, the
+    log-sum-exp ``lse`` (B,H,S) f32 and the output gradient ``do``."""
+    if _on_cuda(q):
+        return _fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    _fa.check_bwd_args(q, k, v, o, lse, do)
+    return ref.flash_attention_bwd(q, k, v, o, lse, do, causal)
+
+
 def ssd_chunk_scan(states, decay):
     """states (B,NC,H,P,N), decay (B,NC,H) -> the state before each chunk,
-    (B,NC,H,P,N) in the states' dtype."""
+    (B,NC,H,P,N) in the states' dtype. On CUDA under autograd it runs
+    through ``SsdChunkScan``."""
     if _on_cuda(states):
-        _no_graph("ssd_chunk_scan", LM_BACKWARD, states, decay)
+        if _needs_graph(states, decay):
+            return _ssd.SsdChunkScan.apply(states, decay)
         return _ssd.ssd_chunk_scan(states, decay)
     _ssd.check_args(states, decay)
     return ref.ssd_chunk_scan(states, decay)
+
+
+def ssd_chunk_scan_bwd(g, out, decay):
+    """(dstates, ddecay) of ``ssd_chunk_scan`` for the output gradient g,
+    from its output ``out``."""
+    if _on_cuda(g):
+        return _ssd.ssd_chunk_scan_bwd(g, out, decay)
+    _ssd.check_bwd_args(g, out, decay)
+    return ref.ssd_chunk_scan_bwd(g, out, decay)
 
 
 def reset_launches() -> None:

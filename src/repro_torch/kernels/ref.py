@@ -5,8 +5,9 @@ arithmetic where that fixes the bits. The CPU path of ``kernels.ops`` runs
 them, the CPU tests hold them against ``repro.kernels.ref``, and
 ``chip_smoke.py`` holds each kernel against its plain version on the card.
 Counterpart of ``repro.kernels.ref`` (int8_matmul, depthwise_conv3x3,
-flash_attention, ssd_chunk_scan, quantize_rows), plus the depthwise
-convolution's weight gradient, which the reference leaves to XLA.
+flash_attention, ssd_chunk_scan, quantize_rows), plus the backward pieces
+the reference leaves to XLA: the depthwise convolution's weight gradient,
+the attention's backward and the scan's.
 """
 from __future__ import annotations
 
@@ -83,24 +84,113 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 NEG_INF = -1e30        # the reference kernels' mask value, never -inf
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """Attention of q (B,H,S,D) over k, v (B,K,S,D), K dividing H (query
-    head h reads kv head h // (H/K)); any strides. Scores, softmax and the
-    probability-weighted sum of v all in fp32, scale 1/sqrt(D), causal mask
-    ``NEG_INF``; output (B,H,S,D) in q's dtype, as the kernel computes it
-    (the kernel's online softmax reaches the same sums in another order)."""
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic type: f32, or f64 for f64 inputs (an
+    f64 evaluation is the yardstick of the f32 ones)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Scaled scores of q (B,H,S,D) against k (B,K,S,D) in ``_acc``, kv head
+    h // (H/K) for query head h, masked above the diagonal with NEG_INF."""
     B, H, S, D = q.shape
-    G = H // k.shape[1]
-    kf = k.to(torch.float32).repeat_interleave(G, dim=1)
-    vf = v.to(torch.float32).repeat_interleave(G, dim=1)
-    scores = torch.matmul(q.to(torch.float32), kf.transpose(-1, -2)) \
-        * (1.0 / math.sqrt(D))
+    dt = _acc(q)
+    kf = k.to(dt).repeat_interleave(H // k.shape[1], dim=1)
+    scores = torch.matmul(q.to(dt), kf.transpose(-1, -2)) * (1.0 / math.sqrt(D))
     if causal:
         mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
         scores = scores.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
+    return scores
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention of q (B,H,S,D) over k, v (B,K,S,D), K dividing H (query
+    head h reads kv head h // (H/K)); any strides, any D. Scores, softmax and
+    the probability-weighted sum of v all in fp32 (f64 for f64 inputs),
+    scale 1/sqrt(D), causal mask ``NEG_INF``; output (B,H,S,D) in q's dtype,
+    as the kernel computes it (the kernel's online softmax reaches the same
+    sums in another order)."""
+    G = q.shape[1] // k.shape[1]
+    probs = torch.softmax(_scores(q, k, causal), dim=-1)
+    vf = v.to(probs.dtype).repeat_interleave(G, dim=1)
     return torch.matmul(probs, vf).to(q.dtype)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """The log-sum-exp of each query row's scaled scores, (B,H,S), what the
+    kernel's forward writes for the backward (f32; f64 for f64 inputs)."""
+    return torch.logsumexp(_scores(q, k, causal), dim=-1)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``flash_attention`` for the output
+    gradient ``do``, step by step as the kernels compute them (not
+    autograd), in fp32 (f64 for f64 inputs), returned in q's dtype:
+
+        P = exp(scale q k^T - lse)      (0 above the diagonal)
+        dV = P^T dO,  dP = dO V^T,  delta = rowsum(dO o O)
+        dS = P o (dP - delta),  dQ = scale dS K,  dK = scale dS^T Q
+
+    dK and dV summed over the query heads of each kv head's group."""
+    B, H, S, D = q.shape
+    K = k.shape[1]
+    G = H // K
+    dt = _acc(q)
+    scale = 1.0 / math.sqrt(D)
+    p = torch.exp(_scores(q, k, causal) - lse.to(dt)[..., None])
+    dof = do.to(dt)
+    kf = k.to(dt).repeat_interleave(G, dim=1)
+    vf = v.to(dt).repeat_interleave(G, dim=1)
+    delta = (dof * o.to(dt)).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(dt)) * scale
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dk = dk.reshape(B, K, G, S, D).sum(2)
+    dv = dv.reshape(B, K, G, S, D).sum(2)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def flash_bwd_limit(want: Tuple[torch.Tensor, ...], q: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                    lse: torch.Tensor, do: torch.Tensor, causal: bool,
+                    tol: float, bf16: bool) -> Tuple[torch.Tensor, ...]:
+    """Element-by-element bounds on |got - want| for the kernel backward's
+    (dq, dk, dv) against ``want``, ``flash_attention_bwd`` in f32 on the
+    same (upcast) inputs:
+
+        tol (1 + M) [+ 2^-8 |want| for bf16 outputs]
+
+    M is each gradient's magnitude, the same sums taken over the absolute
+    values of their terms (P, |dO| |V|^T + rowsum|dO o O|, |Q|, |K|): the
+    f32 sums of the kernels and of the plain version round in other orders,
+    and a sum's rounding error is bounded by its terms' magnitude, not by
+    its value (dS cancels in dP - delta). The kernel reads bf16 inputs
+    exactly and computes in f32, so bf16 adds one rounding of each output
+    (at most 2^-9 relative)."""
+    B, H, S, D = q.shape
+    K = k.shape[1]
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    p = torch.exp(_scores(q.float(), k.float(), causal)
+                  - lse.float()[..., None])
+    da = do.float().abs()
+    ka = k.float().abs().repeat_interleave(G, dim=1)
+    va = v.float().abs().repeat_interleave(G, dim=1)
+    dsm = p * (torch.matmul(da, va.transpose(-1, -2))
+               + (da * o.float().abs()).sum(-1, keepdim=True))
+    mags = (torch.matmul(dsm, ka) * scale,
+            (torch.matmul(dsm.transpose(-1, -2), q.float().abs()) * scale)
+            .reshape(B, K, G, S, D).sum(2),
+            torch.matmul(p.transpose(-1, -2), da).reshape(B, K, G, S, D)
+            .sum(2))
+    return tuple(tol * (1 + m) + (BF16_ULP * w.float().abs() if bf16 else 0)
+                 for m, w in zip(mags, want))
 
 
 BF16_ULP = 2.0 ** -8    # a bf16 ulp relative to the value (8 mantissa bits)
@@ -127,12 +217,35 @@ def flash_bf16_limit(want: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
 def ssd_chunk_scan(states: torch.Tensor, decay: torch.Tensor) -> torch.Tensor:
     """Mamba-2 inter-chunk state recurrence over states (B,NC,H,P,N) and
     decay (B,NC,H): ``s_0 = 0, s_{c+1} = s_c * decay_c + states_c``, returning
-    s_c for each c (the state before chunk c), fp32 carry, in the states'
-    dtype."""
-    s = torch.zeros_like(states[:, 0], dtype=torch.float32)
+    s_c for each c (the state before chunk c), fp32 carry (f64 for f64
+    states), in the states' dtype."""
+    dt = _acc(states)
+    s = torch.zeros_like(states[:, 0], dtype=dt)
     out = torch.empty_like(states)
     for c in range(states.shape[1]):
         out[:, c] = s.to(states.dtype)
-        s = s * decay[:, c, :, None, None].to(torch.float32) \
-            + states[:, c].to(torch.float32)
+        s = s * decay[:, c, :, None, None].to(dt) + states[:, c].to(dt)
     return out
+
+
+def ssd_chunk_scan_bwd(g: torch.Tensor, out: torch.Tensor,
+                       decay: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradients (dstates in g's dtype, ddecay (B,NC,H) in f32, f64 for
+    f64 inputs) of ``ssd_chunk_scan`` for the output gradient g, from its
+    output ``out``: the reverse scan, written out as the kernel runs it,
+
+        lam_{NC-1} = g_{NC-1},  lam_c = g_c + lam_{c+1} decay_c,
+        dstates_c = lam_{c+1},  ddecay_c = sum_{p,n} lam_{c+1} s_c,
+
+    with lam_{NC} = 0; each product and sum rounded on its own (the kernel
+    is bit-equal in dstates; ddecay's sums run in another order)."""
+    dt = _acc(g)
+    lam = torch.zeros_like(g[:, 0], dtype=dt)
+    dstates = torch.empty_like(g, memory_format=torch.contiguous_format)
+    ddecay = torch.empty(decay.shape, dtype=dt, device=g.device)
+    for c in reversed(range(g.shape[1])):
+        dstates[:, c] = lam.to(g.dtype)
+        ddecay[:, c] = (lam * out[:, c].to(dt)).sum(dim=(-2, -1))
+        lam = g[:, c].to(dt) + lam * decay[:, c, :, None, None].to(dt)
+    return dstates, ddecay

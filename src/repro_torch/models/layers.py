@@ -38,15 +38,22 @@ def unported(what: str):
     raise NotImplementedError(f"{what} {_UNPORTED}")
 
 
+def acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """Where the reference computes in fp32: fp32 for bf16 and f32
+    activations, f64 for f64 ones (an f64 evaluation of the model is the
+    yardstick of its f32 gradients)."""
+    return torch.promote_types(t.dtype, f32)
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.to(f32)
+    xf = x.to(acc_dtype(x))
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * (1.0 + w.to(f32))).to(x.dtype)
+    return (out * (1.0 + w.to(xf.dtype))).to(x.dtype)
 
 
 def layernorm(x, w, b, eps):
@@ -57,21 +64,22 @@ def layernorm(x, w, b, eps):
 # positions
 # ---------------------------------------------------------------------------
 
-def rope_frequencies(head_dim: int, theta: float,
-                     device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=f32, device=device) / head_dim
+def rope_frequencies(head_dim: int, theta: float, device=None,
+                     dtype: torch.dtype = f32) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=dtype, device=device) / head_dim
     return 1.0 / (theta ** exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, S, H, hd); positions: (B, S) int. Half-split rotation with
-    fp32 angles, output in x's dtype."""
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)      # (hd/2,)
-    ang = positions.to(f32)[..., None] * freqs                   # (B,S,hd/2)
+    fp32 angles (f64 for f64 x), output in x's dtype."""
+    ad = acc_dtype(x)
+    freqs = rope_frequencies(x.shape[-1], theta, x.device, ad)  # (hd/2,)
+    ang = positions.to(ad)[..., None] * freqs                    # (B,S,hd/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = torch.chunk(x.to(f32), 2, dim=-1)
+    x1, x2 = torch.chunk(x.to(ad), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
@@ -317,14 +325,15 @@ def ssd(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
     xs, B_, C_ = torch.split(xBC, [di, ds, ds], dim=-1)
 
-    dt = F.softplus(dt.to(f32) + p["dt_bias"].to(f32))           # (B,S,nh)
-    A = -torch.exp(p["A_log"].to(f32))                           # (nh,)
+    ad = acc_dtype(x)
+    dt = F.softplus(dt.to(ad) + p["dt_bias"].to(ad))           # (B,S,nh)
+    A = -torch.exp(p["A_log"].to(ad))                           # (nh,)
 
-    X = xs.reshape(B, S, nh, hd).to(f32)
+    X = xs.reshape(B, S, nh, hd).to(ad)
     Xd = X * dt[..., None]
     dA = (dt * A).reshape(B, nc, Q, nh).permute(0, 3, 1, 2)      # (B,nh,nc,Q)
-    Bc = B_.reshape(B, nc, Q, ds).to(f32)
-    Cc = C_.reshape(B, nc, Q, ds).to(f32)
+    Bc = B_.reshape(B, nc, Q, ds).to(ad)
+    Cc = C_.reshape(B, nc, Q, ds).to(ad)
     Xc = Xd.reshape(B, nc, Q, nh, hd)
 
     A_cum = torch.cumsum(dA, dim=-1)                             # (B,nh,nc,Q)
@@ -341,7 +350,7 @@ def ssd(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     out_decay = torch.exp(A_cum)                                 # (B,nh,nc,Q)
     Y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", Cc, prev_states, out_decay)
     Y = (Y_diag + Y_off).reshape(B, S, nh, hd)
-    Y = Y + p["D_skip"].to(f32)[None, None, :, None] * X
+    Y = Y + p["D_skip"].to(ad)[None, None, :, None] * X
     y = Y.reshape(B, S, di).to(x.dtype)
 
     y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)

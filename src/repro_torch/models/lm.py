@@ -8,6 +8,7 @@ A Python loop over the repeats takes the place of ``lax.scan``.
 Entry points (functions on tensors, as in the reference):
   * ``param_defs(cfg)`` / ``init_params(cfg, generator, device)``
   * ``forward(cfg, params, tokens)`` -- prefill logits (fp32)
+  * ``lm_loss(cfg, params, batch)`` / ``xent_loss`` -- training loss
   * ``init_cache(cfg, batch, s_max, device)`` + ``decode_step(...)`` -- serving
 
 The decode cache is a dict of stacked tensors that ``decode_step`` updates
@@ -23,7 +24,7 @@ GeLU and ungated MLPs) raises ``NotImplementedError`` in ``check_ported``
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -159,7 +160,7 @@ def _unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     before the cast to fp32, as in the reference."""
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].t() if cfg.tie_embeddings else params["head"]
-    return (x @ head.to(x.dtype)).to(f32)
+    return (x @ head.to(x.dtype)).to(L.acc_dtype(x))
 
 
 # ---------------------------------------------------------------------------
@@ -273,3 +274,31 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
             x = _decode_sublayer(cfg, kinds[j], blk[f"blk{j}"],
                                  blk_cache[f"blk{j}"], x, position)
     return _unembed(cfg, params, x)[:, -1, :], cache
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy; logits fp32 (B,S,V), labels (B,S);
+    with ``mask`` the masked mean (over at least one position)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.to(torch.long)[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
+
+
+def lm_loss(cfg: ModelConfig, params: Dict, batch: Dict,
+            aux_weight: float = 0.01) -> Tuple[torch.Tensor, Dict]:
+    """(total loss, {"xent", "moe_aux"}) of a batch {"tokens", "labels"[,
+    "mask"]} of tensors on the parameters' device. The aux loss is 0: MoE
+    is not ported (``check_ported``), nor image tokens or encoder frames."""
+    logits, aux = forward(cfg, params, batch["tokens"])
+    loss = xent_loss(logits, batch["labels"], batch.get("mask"))
+    total = loss + aux_weight * aux
+    return total, {"xent": loss, "moe_aux": aux}

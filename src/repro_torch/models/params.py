@@ -153,6 +153,20 @@ def to_jax(state_dict: Mapping[str, torch.Tensor]) -> Tuple[Dict, Dict]:
     return params, state
 
 
+def flatten(tree) -> Dict[str, torch.Tensor]:
+    """A nested dict of leaves -> {"a.b.c": leaf}, in sorted key order (the
+    reference's tree order, so sums over the leaves run in its order)."""
+    return {".".join(path): leaf for path, leaf in _leaves(tree)}
+
+
+def unflatten(flat: Mapping[str, torch.Tensor]) -> Dict:
+    """Inverse of ``flatten``."""
+    out: Dict = {}
+    for key, leaf in flat.items():
+        _set(out, tuple(key.split(".")), leaf)
+    return out
+
+
 def lm_from_jax(params) -> Dict:
     """A JAX LM parameter (or cache) tree -> the same nesting of CPU
     tensors, in the same layout and dtype."""

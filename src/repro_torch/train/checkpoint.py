@@ -11,6 +11,13 @@ NamedTuple field and ``i:<index>`` for a list or tuple entry, joined by
 nested dicts, NamedTuples, lists and tuples of tensors or numpy arrays;
 arrays are stored as they are given, so a caller that wants the
 reference's layouts converts first (``models.params.xr_train_to_jax``).
+bfloat16: numpy has no bfloat16 of its own, and an ``ml_dtypes`` bfloat16
+array (what a JAX array converts to) is written by ``np.savez`` as raw
+2-byte voids, which the reference's restore cannot cast back ("No cast
+function available"). So a bfloat16 tensor is stored widened to float32,
+exactly, which both packages restore bit for bit into a bfloat16 leaf; a
+2-byte void entry (a bfloat16 checkpoint the reference wrote) is read back
+as its bits.
 """
 from __future__ import annotations
 
@@ -50,8 +57,11 @@ def _paths(tree, prefix=()) -> Iterator[Tuple[str, Any]]:
 
 
 def _host(leaf) -> np.ndarray:
-    """A numpy copy of a leaf (a CUDA tensor is copied to the host)."""
+    """A numpy copy of a leaf (a CUDA tensor is copied to the host; a
+    bfloat16 tensor widened to float32, exactly)."""
     if torch.is_tensor(leaf):
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.float()
         return leaf.detach().cpu().numpy().copy()
     return np.array(leaf, copy=True)
 
@@ -115,7 +125,11 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def _rebuild(like, prefix, data):
     if _is_leaf(like):
-        t = torch.from_numpy(np.array(data[_SEP.join(prefix)]))
+        arr = np.array(data[_SEP.join(prefix)])
+        if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
         dtype = like.dtype if torch.is_tensor(like) else t.dtype
         return t.to(dtype)
     kids = {part: _rebuild(child, prefix + (part,), data)

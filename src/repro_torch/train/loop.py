@@ -1,5 +1,7 @@
-"""The XR training loop (the paper's DetNet/EDSNet workloads), port of the
-XR half of ``repro.train.loop``; LM training waits for the next slice.
+"""The training steps and the XR training loop, port of
+``repro.train.loop``: ``make_xr_step`` and ``run_xr_training`` (the paper's
+DetNet/EDSNet workloads) and ``make_lm_step`` (the LM loop is
+``launch.train``'s, as in the reference).
 
 The net (``models.xr.XRNet``) holds the parameters and the BN state; a step
 runs the train-mode forward, ``loss.backward()``, global-norm clipping and
@@ -21,8 +23,10 @@ from typing import Callable, Dict, Iterator, Optional
 
 import torch
 
+from repro_torch.models import lm
 from repro_torch.models import params as params_mod
 from repro_torch.train import checkpoint as ckpt_mod
+from repro_torch.train import compress as compress_mod
 from repro_torch.train import optim
 
 
@@ -71,6 +75,46 @@ def make_xr_step(net, loss_fn, lr_fn, max_grad_norm: float = 1.0):
         metrics = {k: v.detach() for k, v in metrics.items()}
         return opt_state, dict(metrics, loss=loss.detach(), grad_norm=gnorm)
 
+    return step_fn
+
+
+def make_lm_step(cfg, params: Dict, lr_fn, max_grad_norm: float = 1.0,
+                 compress_grads: bool = False):
+    """LM step: (opt_state, batch, step) -> (opt_state, metrics), the twin
+    of the reference's ``make_lm_step``: ``lm.lm_loss``, ``backward()``,
+    global-norm clipping and AdamW, the parameter tree ``params`` (its
+    leaves made to require grad) updated in place. The optimizer state is
+    keyed like ``models.params.flatten(params)``. With ``compress_grads``
+    the gradients pass through INT8 compression with error feedback first
+    (``train.compress``, as the reference's launcher does; the error is
+    held in ``step_fn.error``). Raises if a parameter got no gradient."""
+    flat = params_mod.flatten(params)
+    for p in flat.values():
+        p.requires_grad_(True)
+
+    def step_fn(opt_state, batch, step):
+        for p in flat.values():
+            p.grad = None
+        loss, metrics = lm.lm_loss(cfg, params, batch)
+        loss.backward()
+        missing = [k for k, p in flat.items() if p.grad is None]
+        if missing:
+            raise RuntimeError(f"no gradient reached {missing}")
+        grads = {k: p.grad for k, p in flat.items()}
+        with torch.no_grad():
+            if compress_grads:
+                q, scales, step_fn.error = compress_mod.compress(
+                    grads, step_fn.error)
+                grads = compress_mod.decompress(q, scales)
+            grads, gnorm = optim.clip_by_global_norm(grads, max_grad_norm)
+            new_p, opt_state = optim.adamw_update(
+                grads, opt_state, flat, lr=float(lr_fn(step)))
+            for k, p in flat.items():
+                p.copy_(new_p[k])
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return opt_state, dict(metrics, loss=loss.detach(), grad_norm=gnorm)
+
+    step_fn.error = compress_mod.init_error(flat) if compress_grads else None
     return step_fn
 
 

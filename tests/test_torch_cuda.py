@@ -267,7 +267,7 @@ def test_flash_attention_kernel_matches_plain(cuda, S, dtype, causal):
 
 
 @pytest.mark.parametrize("H,K", [(4, 4), (8, 2), (8, 1)])
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", flash_attention.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_heads_and_dims(cuda, H, K, D, dtype):
     S = 130
@@ -278,12 +278,12 @@ def test_flash_attention_kernel_heads_and_dims(cuda, H, K, D, dtype):
 
 
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129])
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", flash_attention.HEAD_DIMS)
 @pytest.mark.parametrize("G", [1, 4, 8])
 def test_flash_attention_bf16_kernel_tile_edges(cuda, S, D, G):
     """The bf16 (wgmma) kernel around its 64-key tiles and 128-row blocks
     (one warpgroup's 64 rows past S, a lone ragged key), every query-head
-    group size, both head dims."""
+    group size, every head dim (its 64- and 32-column swizzled regions)."""
     H = 8
     q, k, v = _attn_inputs(_gen(S * D + G), 2, H, H // G, S, D,
                            torch.bfloat16, cuda, seq_major=True)
@@ -337,9 +337,9 @@ def test_lm_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.randn(1, 4, 16, 64, device=cuda)
     with pytest.raises(ValueError):          # head dim 48
         flash_attention.flash_attention(q[..., :48], q[..., :48], q[..., :48])
-    q128 = torch.randn(1, 4, 16, 128, device=cuda)
-    with pytest.raises(ValueError):          # head dim 128: no instance
-        flash_attention.flash_attention(q128, q128, q128)
+    q80 = torch.randn(1, 4, 16, 80, device=cuda)
+    with pytest.raises(ValueError, match="not in the kernels'"):  # no instance
+        flash_attention.flash_attention(q80, q80, q80)
     with pytest.raises(ValueError):          # 3 kv heads for 4 query heads
         flash_attention.flash_attention(q, q[:, :3], q[:, :3])
     with pytest.raises(TypeError):
@@ -481,18 +481,13 @@ def test_xrnet_gradients_reach_every_parameter(cuda, full_f32):
 
 
 def test_kernels_without_backward_refuse_autograd(cuda):
-    """flash_attention, ssd_chunk_scan, quantize_rows and int8_matmul raise
-    under autograd instead of returning a detached result; under no_grad
-    they run."""
-    q = torch.randn(1, 4, 16, 64, device=cuda, requires_grad=True)
-    st = torch.randn(1, 2, 3, 4, 5, device=cuda, requires_grad=True)
-    dc = torch.rand(1, 2, 3, device=cuda)
+    """quantize_rows and int8_matmul raise under autograd instead of
+    returning a detached result; under no_grad they run. (flash_attention
+    and ssd_chunk_scan have their backward since the LM-training slice.)"""
     xq = torch.randn(8, 16, device=cuda, requires_grad=True)
     a = torch.zeros(4, 4, dtype=torch.int8, device=cuda)
     s = torch.ones(4, device=cuda, requires_grad=True)
-    calls = [lambda: ops.flash_attention(q, q, q),
-             lambda: ops.ssd_chunk_scan(st, dc),
-             lambda: ops.quantize_rows(xq),
+    calls = [lambda: ops.quantize_rows(xq),
              lambda: ops.int8_matmul(a, a, s, s)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no backward kernel"):
@@ -505,3 +500,182 @@ def test_kernels_without_backward_refuse_autograd(cuda):
     with pytest.raises(NotImplementedError, match="float32 only"):
         ops.depthwise_conv3x3(xb, torch.randn(8, 1, 3, 3, device=cuda,
                                               dtype=torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# LM training: the attention and scan backward on kernels
+# ---------------------------------------------------------------------------
+
+def _attn_case(cuda, B, H, K, S, D, dtype, causal, seed):
+    g = _gen(seed)
+    q, k, v = _attn_inputs(g, B, H, K, S, D, dtype, cuda, seq_major=True)
+    o, lse = flash_attention.flash_attention(q, k, v, causal, with_lse=True)
+    do = torch.randn(B, S, H, D, generator=g).to(cuda, dtype).transpose(1, 2)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("D", flash_attention.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("H,K,S", [(8, 2, 130), (4, 4, 64), (8, 1, 1)])
+def test_flash_attention_backward_kernel_matches_plain(cuda, D, dtype, causal,
+                                                       H, K, S):
+    """dq, dk, dv against the plain backward in f32 on the same (upcast)
+    inputs, within ref.flash_bwd_limit (ATTN_TOL times each gradient's
+    magnitude, + the bf16 output rounding), the same bits on a second call,
+    and the forward's log-sum-exp against the plain one."""
+    q, k, v, o, lse, do = _attn_case(cuda, 2, H, K, S, D, dtype, causal,
+                                     D + S + H)
+    before = flash_attention.flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention_bwd.launches == before + 2
+    torch.testing.assert_close(lse, ref.flash_attention_lse(
+        q.float(), k.float(), causal), rtol=1e-5, atol=1e-5)
+    want = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                   o.float(), lse, do.float(), causal)
+    lims = ref.flash_bwd_limit(want, q, k, v, o, lse, do, causal, ATTN_TOL,
+                               dtype == torch.bfloat16)
+    for g, a, w, lim, t in zip(got, again, want, lims, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        assert torch.equal(g, a)
+        assert bool(((g.float() - w).abs() <= lim).all())
+
+
+def test_flash_attention_backward_at_the_llama_shape(cuda):
+    """B=2, S=2048, 32 query heads over 8 kv heads of 64, causal, bf16: the
+    main path's call."""
+    q, k, v, o, lse, do = _attn_case(cuda, 2, 32, 8, 2048, 64,
+                                     torch.bfloat16, True, 5)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, True)
+    want = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                   o.float(), lse, do.float(), True)
+    lims = ref.flash_bwd_limit(want, q, k, v, o, lse, do, True, ATTN_TOL,
+                               True)
+    for g, w, lim in zip(got, want, lims):
+        assert bool(((g.float() - w).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_function_matches_plain_autograd(cuda, dtype):
+    """Through ops under autograd: the Function's gradients against
+    autograd of the plain forward on the upcast inputs."""
+    q, k, v = _attn_inputs(_gen(11), 2, 8, 2, 100, 64, dtype, cuda,
+                           seq_major=True)
+    r = torch.randn(2, 8, 100, 64, generator=_gen(12)).to(cuda)
+    a = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    y = ops.flash_attention(*a, True)
+    assert type(y.grad_fn).__name__ == "FlashAttentionBackward"
+    (y.float() * r).sum().backward()
+    b = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    (ref.flash_attention(*b, True) * r).sum().backward()
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for ta, tb in zip(a, b):
+        assert ta.grad.dtype == dtype
+        scale = float(tb.grad.abs().max())
+        assert float((ta.grad.float() - tb.grad).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("B,NC,H,P,N", [(2, 8, 64, 64, 128), (1, 1, 3, 5, 7),
+                                        (2, 9, 4, 33, 17), (3, 4, 2, 64, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_backward_kernel(cuda, B, NC, H, P, N, dtype):
+    """dstates bit-equal to the plain reverse scan; ddecay within 1e-6 of
+    its magnitude (sum of |lam s|) off the f64 sum; the same bits twice."""
+    g = _gen(B + NC + H + P + N)
+    st = torch.randn(B, NC, H, P, N, generator=g).to(cuda, dtype)
+    dc = torch.rand(B, NC, H, generator=g).to(cuda)
+    out = ops.ssd_chunk_scan(st, dc)
+    gr = torch.randn(B, NC, H, P, N, generator=g).to(cuda, dtype)
+    before = ssd_scan.ssd_chunk_scan_bwd.launches
+    ds, dd = ops.ssd_chunk_scan_bwd(gr, out, dc)
+    ds2, dd2 = ops.ssd_chunk_scan_bwd(gr, out, dc)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_chunk_scan_bwd.launches == before + 2
+    assert torch.equal(ds, ds2) and torch.equal(dd, dd2)
+    assert ds.dtype == dtype and dd.dtype == torch.float32
+    assert torch.equal(ds, ref.ssd_chunk_scan_bwd(gr, out, dc)[0])
+    exact = ref.ssd_chunk_scan_bwd(gr.double(), out.double(), dc.double())[1]
+    mag = ref.ssd_chunk_scan_bwd(gr.double().abs(), out.double().abs(),
+                                 dc.double())[1]
+    assert bool(((dd.double() - exact).abs() <= 1e-6 * mag).all())
+
+
+def test_ssd_scan_function_matches_plain_autograd(cuda):
+    g = _gen(21)
+    st = torch.randn(2, 6, 4, 8, 16, generator=g).to(cuda)
+    dc = torch.rand(2, 6, 4, generator=g).to(cuda)
+    r = torch.randn(2, 6, 4, 8, 16, generator=g).to(cuda)
+    a = [st.clone().requires_grad_(), dc.clone().requires_grad_()]
+    y = ops.ssd_chunk_scan(*a)
+    assert type(y.grad_fn).__name__ == "SsdChunkScanBackward"
+    (y * r).sum().backward()
+    b = [st.clone().requires_grad_(), dc.clone().requires_grad_()]
+    (ref.ssd_chunk_scan(*b) * r).sum().backward()
+    for ta, tb in zip(a, b):
+        torch.testing.assert_close(ta.grad, tb.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_lm_backward_kernels_refuse_what_they_do_not_take(cuda):
+    q, k, v, o, lse, do = _attn_case(cuda, 1, 4, 2, 16, 64, torch.float32,
+                                     True, 3)
+    with pytest.raises(ValueError):          # lse of another shape
+        flash_attention.flash_attention_bwd(q, k, v, o, lse[:, :2], do)
+    with pytest.raises(ValueError):          # do in another dtype
+        flash_attention.flash_attention_bwd(q, k, v, o, lse, do.double())
+    st = torch.randn(1, 2, 3, 4, 5, device=cuda)
+    dc = torch.rand(1, 2, 3, device=cuda)
+    with pytest.raises(ValueError):          # out not contiguous
+        ssd_scan.ssd_chunk_scan_bwd(st, st.transpose(-1, -2).contiguous()
+                                    .transpose(-1, -2), dc)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b"])
+def test_lm_step_gradients_on_the_card_match_the_cpu(cuda, full_f32, arch):
+    """One smoke-config step in f32 through the kernels forward and
+    backward: one launch of each kernel and its backward per layer, and
+    every parameter a finite gradient, held against the same step on the
+    CPU (the plain versions) and in f64 there: within 1e-4 of the largest
+    entry of the CPU's, or, where these random nets amplify rounding, at
+    most twice the CPU's own distance from f64 (+ 1e-4 of the largest
+    entry), as chip_smoke.py's LT3 holds the full-width step."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import lm
+    from repro_torch.models.params import flatten
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    tok = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                            (2, 65)).astype(np.int32)
+    grads = {}
+    for dev, dt in ((cuda, "float32"), (torch.device("cpu"), "float32"),
+                    (torch.device("cpu"), "float64")):
+        c = dataclasses.replace(cfg, dtype=dt)
+        params = lm.init_params(cfg, _gen(4), dev)
+        flat = flatten(params)
+        for p in flat.values():
+            p.data = p.data.to(getattr(torch, dt))
+            p.requires_grad_(True)
+        batch = {"tokens": torch.from_numpy(tok[:, :-1]).to(dev),
+                 "labels": torch.from_numpy(tok[:, 1:]).to(dev)}
+        before = dict(ops.launches())
+        lm.lm_loss(c, params, batch)[0].backward()
+        if dev.type == "cuda":
+            n = ops.launches()
+            key = "flash_attention" if arch.startswith("llama") \
+                else "ssd_chunk_scan"
+            assert n[key] - before[key] == cfg.num_layers
+            assert n[key + "_bwd"] - before[key + "_bwd"] == cfg.num_layers
+        grads[dev.type, dt] = {k: p.grad.double().cpu()
+                               for k, p in flat.items()}
+    card, cpu, f64 = (grads[k] for k in (("cuda", "float32"),
+                                         ("cpu", "float32"),
+                                         ("cpu", "float64")))
+    gmax = max(float(t.abs().max()) for t in cpu.values())
+    for k, gc in card.items():
+        assert bool(torch.isfinite(gc).all()), k
+        if float((gc - cpu[k]).abs().max()) <= 1e-4 * gmax:
+            continue
+        off_card = float((gc - f64[k]).abs().max())
+        off_cpu = float((cpu[k] - f64[k]).abs().max())
+        assert off_card <= 2 * off_cpu + 1e-4 * gmax, (k, off_card, off_cpu)

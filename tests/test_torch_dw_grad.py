@@ -1,8 +1,9 @@
 """The depthwise kernel's backward, on the CPU: the autograd ``Function``
 with its CUDA launches swapped for their plain versions, the plain weight
 gradient against ``jax`` differentiating the reference's convolution, the
-weight-gradient kernel's tile plan written out in numpy, and the CUDA
-wrappers that must refuse autograd rather than drop the gradient. The
+weight-gradient kernel's tile plan written out in numpy, the CUDA
+wrappers that must refuse autograd rather than drop the gradient, and the
+LM kernels that reach their autograd ``Function`` instead. The
 kernels themselves are held to their plain versions on the card in
 tests/test_torch_cuda.py and chip_smoke.py."""
 import dataclasses
@@ -162,24 +163,18 @@ def test_xrnet_hands_the_backward_contiguous_gradients(plain_launches,
         assert float((got[k] - p.grad).abs().max()) <= 1e-5 * gmax, k
 
 
-@pytest.mark.parametrize("call", ["flash_attention", "ssd_chunk_scan",
-                                  "quantize_rows", "int8_matmul"])
+@pytest.mark.parametrize("call", ["quantize_rows", "int8_matmul"])
 def test_cuda_branch_refuses_autograd_without_a_backward(monkeypatch, call):
     """On CUDA the kernels without a backward raise under autograd, before
     any launch; under no_grad they reach the kernel wrapper."""
     reached = []
     monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
-    for mod, fn in (("_fa", "flash_attention"), ("_ssd", "ssd_chunk_scan"),
-                    ("_q", "quantize_rows"), ("_mm", "int8_matmul")):
+    for mod, fn in (("_q", "quantize_rows"), ("_mm", "int8_matmul")):
         monkeypatch.setattr(getattr(ops, mod), fn,
                             lambda *a, fn=fn: reached.append(fn))
-    q = torch.randn(1, 4, 8, 32, requires_grad=True)
     s = torch.ones(4, requires_grad=True)
     a = torch.zeros(4, 4, dtype=torch.int8)
-    args = {"flash_attention": (q, q, q),
-            "ssd_chunk_scan": (torch.randn(1, 2, 3, 4, 5, requires_grad=True),
-                               torch.rand(1, 2, 3)),
-            "quantize_rows": (torch.randn(4, 8, requires_grad=True),),
+    args = {"quantize_rows": (torch.randn(4, 8, requires_grad=True),),
             "int8_matmul": (a, a, s, s)}[call]
     with pytest.raises(RuntimeError, match="no backward kernel"):
         getattr(ops, call)(*args)
@@ -187,6 +182,41 @@ def test_cuda_branch_refuses_autograd_without_a_backward(monkeypatch, call):
     with torch.no_grad():
         getattr(ops, call)(*args)
     assert reached == [call]
+
+
+@pytest.mark.parametrize("call", ["flash_attention", "ssd_chunk_scan"])
+def test_cuda_branch_runs_lm_kernels_through_their_function(monkeypatch,
+                                                            call):
+    """On CUDA the LM kernels run through their autograd ``Function`` under
+    autograd (the result carries its backward) and the forward kernel alone
+    under no_grad."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sc
+    reached = []
+
+    def fwd(q, k, v, causal=True, with_lse=False):
+        reached.append(("flash_attention", with_lse))
+        o = ref.flash_attention(q, k, v, causal)
+        return (o, ref.flash_attention_lse(q, k, causal)) if with_lse else o
+
+    def scan(states, decay):
+        reached.append(("ssd_chunk_scan", None))
+        return ref.ssd_chunk_scan(states, decay)
+
+    monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(fa, "flash_attention", fwd)
+    monkeypatch.setattr(sc, "ssd_chunk_scan", scan)
+    q = torch.randn(1, 4, 8, 32, requires_grad=True)
+    args, fn_class = {
+        "flash_attention": ((q, q, q), fa.FlashAttention),
+        "ssd_chunk_scan": ((torch.randn(1, 2, 3, 4, 5, requires_grad=True),
+                            torch.rand(1, 2, 3)), sc.SsdChunkScan)}[call]
+    out = getattr(ops, call)(*args)
+    assert type(out.grad_fn).__name__ == f"{fn_class.__name__}Backward"
+    with torch.no_grad():
+        assert getattr(ops, call)(*args).grad_fn is None
+    lse = True if call == "flash_attention" else None
+    assert reached == [(call, lse), (call, False if lse else None)]
 
 
 def test_wgrad_checks_its_arguments():

@@ -185,11 +185,14 @@ def test_cpu_path_launches_no_kernel(rng):
                     torch.zeros((2, 2), dtype=torch.int8),
                     torch.ones(2), torch.ones(2))
     q = torch.randn(1, 2, 5, 32)
-    ops.flash_attention(q, q, q)
-    ops.ssd_chunk_scan(torch.randn(1, 2, 3, 4, 5), torch.rand(1, 2, 3))
+    o = ops.flash_attention(q, q, q)
+    ops.flash_attention_bwd(q, q, q, o, torch.zeros(1, 2, 5), q)
+    st, dc = torch.randn(1, 2, 3, 4, 5), torch.rand(1, 2, 3)
+    ops.ssd_chunk_scan_bwd(st, ops.ssd_chunk_scan(st, dc), dc)
     ops.depthwise_conv3x3_wgrad(torch.randn(1, 4, 4, 8),
                                 torch.randn(1, 4, 4, 8))
     assert ops.launches() == before
     assert set(before) == {"depthwise_conv3x3", "depthwise_conv3x3_wgrad",
                            "int8_matmul", "quantize_rows", "flash_attention",
-                           "ssd_chunk_scan"}
+                           "flash_attention_bwd", "ssd_chunk_scan",
+                           "ssd_chunk_scan_bwd"}
