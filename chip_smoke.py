@@ -1130,8 +1130,10 @@ LT_DIMS_SHAPE = (2, 8, 2, LM_RAGGED_S)   # (B, H, K, S) of the head-dim cases
 # the backward kernels against the plain backward in f32 on the same
 # (upcast) inputs, element by element: FLASH_TOL times each gradient's
 # magnitude (its sums over |terms|: a sum's rounding is bounded by its
-# terms, not its value, and dS cancels in dP - delta), + 2^-8 |value| for
-# the bf16 outputs (ref.flash_bwd_limit); the scan's dstates bit-equal, its
+# terms, not its value, and dS cancels in dP - delta), + 2^-8 (|value| +
+# magnitude) in bf16 for the output rounding and the tensor-core route's
+# P and dS rounded to bf16 as operands (ref.flash_bwd_limit); f32 (the
+# CUDA-core route) within FLASH_TOL alone; the scan's dstates bit-equal, its
 # ddecay within SCAN_BWD_TOL of sum |lam s| off the f64 sum
 SCAN_BWD_TOL = 1e-6
 # LT3: one step at one repeat, full width, f32, (B, S) small enough for an
@@ -1140,9 +1142,10 @@ SCAN_BWD_TOL = 1e-6
 LT_TWIN = {"llama3.2-1b": (1, 300), "mamba2-1.3b": (1, 512)}
 LT_RESUME_STEPS, LT_CKPT_EVERY = 6, 3
 # kernel names in profiles, and launches per wrapper call
+# (the bf16 routes: LT2-LT5 train and time in bf16)
 LT_CNAMES = {"flash_attention": ("flash_tc_kernel",),
-             "flash_attention_bwd": ("flash_bwd_delta", "flash_bwd_dkdv",
-                                     "flash_bwd_dq"),
+             "flash_attention_bwd": ("flash_bwd_delta_tc",
+                                     "flash_bwd_dkdv_tc", "flash_bwd_dq_tc"),
              "ssd_chunk_scan": ("ssd_scan_kernel",),
              "ssd_chunk_scan_bwd": ("ssd_scan_bwd_kernel",
                                     "ssd_scan_bwd_reduce")}
@@ -1214,12 +1217,13 @@ def lm_train_slice(dev, gen, report):
                       "forward with and without the log-sum-exp differ")
                 check(e_lse <= FLASH_TOL * (1 + float(lse.abs().max())),
                       f"flash_attention {what}: log-sum-exp off by {e_lse}")
-                overs = []
+                overs, ratios = [], []
                 for name, g, a, w, lm_ in zip("qkv", got, again, want_g,
                                               lims):
                     check(torch.equal(g, a), f"flash_attention_bwd {what}: "
                           f"d{name} differs in bits between two calls")
                     overs.append(float(((g.float() - w).abs() - lm_).max()))
+                    ratios.append(float(((g.float() - w).abs() / lm_).max()))
                     check(overs[-1] <= 0, f"flash_attention_bwd {what}: a "
                           f"d{name} element is {overs[-1]} over its bound")
                 e = max(max_err(g, w) for g, w in zip(got, want_g))
@@ -1227,11 +1231,15 @@ def lm_train_slice(dev, gen, report):
                                                     torch.bfloat16, True):
                     err["flash_attention_bwd"] = e     # the main path's call
                 worst[what] = {"fwd_over": over, "lse_err": e_lse,
-                               "bwd_over": overs, "bwd_max_abs_err": e}
+                               "bwd_over": overs, "bwd_of_bound": ratios,
+                               "bwd_max_abs_err": e}
                 print(f"  LT1 flash {what}: forward {over:.3g} under/over "
                       f"its bound, lse err {e_lse:.3g}; backward max abs "
                       f"err {e:.3g}, bound margins "
-                      + ", ".join(f"{x:.3g}" for x in overs))
+                      + ", ".join(f"{x:.3g}" for x in overs)
+                      + ", worst element at "
+                      + ", ".join(f"{x:.3g}" for x in ratios)
+                      + " of its bound (dq, dk, dv)")
                 del o, o2, lse, want, lim, got, again, want_g, lims
     report["lt1_flash"] = worst
     scan_shapes = [(b, LM_S // mcfg.ssm_chunk, mcfg.ssm_heads,
@@ -1505,9 +1513,14 @@ def lm_train_slice(dev, gen, report):
         for label, fn in zip(("ms", "plain_ms", "library_ms"), fns):
             a = () if label == "library_ms" else args
             t[label] = median_ms(fn, *a, inner=10)
-            t[label.replace("ms", "device_ms")] = ms(device_us(
+            busy, by_name, _ = device_us(
                 [(fn, a)], reps=3, expect={c: 1 for c in LT_CNAMES[name]}
-                if label == "ms" else None)[0])
+                if label == "ms" else None)
+            t[label.replace("ms", "device_ms")] = ms(busy)
+            if label == "ms":                 # each launch of the kernel
+                t["device_ms_by_kernel"] = {
+                    c: ms(sum(u for n_, u in by_name.items() if c in n_))
+                    if by_name else None for c in LT_CNAMES[name]}
         t.update(bound_ms=max(bound), ops_ms=bound[0], bytes_ms=bound[1],
                  bound_by="operations" if bound[0] >= bound[1] else "bytes")
         times[name] = t
@@ -1547,6 +1560,36 @@ def lm_train_slice(dev, gen, report):
                  f"{row_d['with_lse_device_ms']:.4f} ms")
               + f", bound {row_d['bound_ms']:.4f} ms")
     report["lm_fwd_dims"] = fwd_dims
+    # the backward at every head dim, bf16 (the tensor-core route), the
+    # same shapes, beside SDPA's backward kernels on the same inputs
+    bwd_dims = {}
+    for d in fak.HEAD_DIMS:
+        qd, kd, vd, gd = (torch.randn(LM_B, LM_S, h, d, generator=gen).to(
+            dev, torch.bfloat16).transpose(1, 2) for h in (H, Kv, Kv, H))
+        od, ld = fak.flash_attention(qd, kd, vd, True, with_lse=True)
+        args_d = (qd, kd, vd, od, ld, gd)
+        sdpa_d = sdpa_bwd_call(qd, kd, vd, gd)
+        row_d = {"ms": median_ms(ops.flash_attention_bwd, *args_d, inner=10),
+                 "device_ms": ms(device_us(
+                     [(ops.flash_attention_bwd, args_d)], reps=3,
+                     expect={c: 1 for c in LT_CNAMES["flash_attention_bwd"]}
+                 )[0]),
+                 "library_device_ms": ms(device_us([(sdpa_d, ())],
+                                                   reps=3)[0]),
+                 "bound_ms": 5 * 2 * d * pairs / BF16_OPS_PER_S * 1e3}
+        check_bound(f"flash_attention_bwd D={d}", {
+            k: row_d[k] for k in ("ms", "device_ms", "library_device_ms")},
+            row_d["bound_ms"])
+        bwd_dims[d] = row_d
+        print(f"  LT5 flash_attention_bwd D={d} bf16 B={LM_B} S={LM_S} "
+              f"H={H} K={Kv}: event {row_d['ms']:.4f} ms, device " + (
+                  "not measured" if row_d["device_ms"] is None else
+                  f"{row_d['device_ms']:.4f} ms") + ", SDPA's backward "
+              + ("not measured" if row_d["library_device_ms"] is None else
+                 f"{row_d['library_device_ms']:.4f} ms")
+              + f", operations bound {row_d['bound_ms']:.4f} ms")
+        del qd, kd, vd, gd, od, ld, args_d, sdpa_d
+    report["lm_bwd_dims"] = bwd_dims
     for name, t in times.items():
         check_bound(name, {k: v for k, v in t.items() if k.endswith("ms")
                            and k not in ("bound_ms", "ops_ms", "bytes_ms")},

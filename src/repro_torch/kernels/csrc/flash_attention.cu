@@ -4,8 +4,12 @@
 // The dtype picks the forward kernel, one each:
 //   bf16 -- flash_tc_kernel, both products on the tensor cores (wgmma);
 //   f32  -- flash_kernel, fp32 FMAs on the CUDA cores (exact f32 twin).
-// The backward (dQ, dK, dV; both dtypes) is three kernels on the CUDA cores
-// with f32 arithmetic: flash_bwd_delta, flash_bwd_dkdv and flash_bwd_dq.
+// The backward (dQ, dK, dV) is three kernels that the dtype picks as it
+// picks the forward:
+//   bf16 -- flash_bwd_delta_tc, then flash_bwd_dkdv_tc and flash_bwd_dq_tc,
+//           every product on wgmma;
+//   f32  -- flash_bwd_delta, then flash_bwd_dkdv and flash_bwd_dq, fp32
+//           FMAs on the CUDA cores (the exact f32 twin).
 //
 // Replaces: the Pallas kernel src/repro/kernels/flash_attention.py,
 //   flash_attention (grid (B*H, nq, nk), nk sequential, VMEM scratch
@@ -45,30 +49,63 @@
 //   fp32; each thread owns 4 query rows x 8 key columns of the score tile
 //   and 4 rows x D/8 columns of the accumulator (register-tiled fp32 FMAs,
 //   rows reduced with warp shuffles), P through shared memory.
-// What the backward's design does (FA2's split, f32 FMAs on the CUDA cores,
-//   no atomics, so two calls give the same bits): a pre-pass sums
-//   delta = rowsum(dO o O) in f32, one warp a row; flash_bwd_dkdv gives one
-//   block to each (batch, kv head, key tile), walks the G query heads of
-//   its group and their query tiles from the diagonal up, recomputes
-//   P = exp(scale Q K^T - lse) (0 where masked) and dP = dO V^T, and sums
-//   dV += P^T dO and dK += scale dS^T Q, dS = P o (dP - delta), in its
-//   registers; flash_bwd_dq gives one block to each (batch, q head, query
-//   tile), walks the key tiles up to the diagonal and sums dQ = scale dS K.
-//   Tiles of BT rows (64; 32 at D=256, for shared memory) of Q, dO, K and V
-//   sit in shared memory as f32; 256 threads, 16 row groups x 16 column
-//   lanes, each with BT/16 rows x BT/16 columns of a score tile and BT/16
-//   rows x D/16 columns of each accumulator.
+// What the backward's design does (FA2's split, no atomics, so two calls
+//   give the same bits): a pre-pass sums delta = rowsum(dO o O) in f32, one
+//   warp a row; the dK/dV kernel gives one block to each (batch, kv head,
+//   key block), walks the G query heads of its group and their query tiles
+//   from the diagonal up in a fixed order, recomputes P = exp(scale Q K^T -
+//   lse) (0 where masked) and dP = dO V^T, and sums dV += P^T dO and
+//   dK += scale dS^T Q, dS = P o (dP - delta), in its registers; the dQ
+//   kernel gives one block to each (batch, q head, query block), walks the
+//   key tiles up to the diagonal and sums dQ = scale dS K. The backward
+//   does 7 products of work (S and dP in both kernels) for the bound's 5.
+// The bf16 backward on the tensor cores: as the forward, warpgroups of 64
+//   resident rows each (wgmma's M), swizzled tiles, 64-row tiles of the
+//   other side double-buffered by cp.async; two warpgroups a block, but one
+//   at D = 64, where two independent blocks an SM were faster than one
+//   block of two that meet at every tile's barrier. The delta pre-pass
+//   reads 16-byte chunks, D/8 lanes a row. dK/dV keeps K and
+//   V resident and streams Q and dO with their lse and delta; it computes
+//   the scores transposed, S^T = K Q^T and dP^T = V dO^T (wgmma from shared
+//   memory, both K-major), so that the accumulator fragment of P^T and
+//   dS^T, rows keys and columns queries, is already the register A operand
+//   of dV += P^T dO and dK += dS^T Q (wgmma with dO and Q read N-major, one
+//   per head-dim region, as the forward's P V). dQ keeps Q and dO resident,
+//   streams K and V, and runs S = Q K^T, dP = dO V^T, then dQ += dS K with
+//   K N-major: the forward's P V with K for V. P and dS are rounded to bf16
+//   as operands; S, dP, delta and every sum stay f32 (ref.flash_bwd_limit
+//   bounds the rounding). Registers: dK/dV holds D/2 + D/2 accumulators a
+//   thread beside 32 + 32 for S^T and dP^T, which fits 255 up to D = 128
+//   (254 there, no spill). At D = 256 the accumulators alone would be 256,
+//   so the block's two warpgroups share the same 64 rows and each sums half
+//   the head dim (its own two 64-column regions), both computing S and dP
+//   in full: the products the two would otherwise exchange through shared
+//   memory are recomputed, which costs 2 of every 6 products' time at
+//   D = 256 but keeps each warpgroup free of the other (no named barriers,
+//   no exchange buffer in a shared memory already at 194 KB there). dQ
+//   splits the same way at D = 256, where Q, dO and the K/V double buffer
+//   of 128 rows would need 257 KB. Not pipelined: issuing tile t + 1's
+//   scores with tile t's products, to run the softmax beside them, made
+//   ptxas serialize the wgmmas (C7520, the per-warpgroup tile skip puts
+//   them on a divergent path) and was no faster.
+// What the f32 backward does: flash_bwd_dkdv and flash_bwd_dq as above on
+//   the CUDA cores. Tiles of BT rows (64; 32 at D=256, for shared memory)
+//   of Q, dO, K and V sit in shared memory as f32; 256 threads, 16 row
+//   groups x 16 column lanes, each with BT/16 rows x BT/16 columns of a
+//   score tile and BT/16 rows x D/16 columns of each accumulator.
 // Shapes: any S (ragged tiles are masked: padded keys score -1e30, padded
 //   query rows are not stored), D in {32, 64, 96, 128, 256}, H a multiple
 //   of the kv heads K (query head h reads kv head h / (H/K)). Tensors are
 //   read and written through their (batch, head, seq) strides with the last
 //   dim contiguous, so the model's seq-major (B,S,H,D) projections need no
-//   transposed copy; the bf16 forward loads 16-byte rows, so its strides
-//   and base pointers must be 16-byte aligned (the wrapper checks). The
-//   log-sum-exp and delta are contiguous (B,H,S) f32.
+//   transposed copy; the bf16 kernels load 16-byte rows, so the strides
+//   and base pointers of q, k, v (and dO) must be 16-byte aligned (the
+//   wrapper checks). The log-sum-exp and delta are contiguous (B,H,S) f32.
 // Causal tiles: key tiles above the diagonal are never loaded, the
 //   diagonal tile is masked, and the longest query tiles are scheduled
-//   first (the query tile is the slowest grid dimension, reversed).
+//   first (the query tile is the slowest grid dimension, reversed). In the
+//   dK/dV kernels, query tiles below the key block are never loaded and
+//   the first key blocks, which walk the most query tiles, go first.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -83,16 +120,9 @@ struct Strides {
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);
 }
 
 // ---- f32: fp32 FMAs on the CUDA cores -------------------------------------
@@ -415,17 +445,18 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t base, int row0, int kd) {
 }
 
 // ROWS x D rows [row0, row0 + ROWS) of a (S, D) slab with row stride
-// `stride` into a swizzled tile; rows past S are zero-filled.
-template <int D, int ROWS>
+// `stride` into a swizzled tile, by NTH threads; rows past S are
+// zero-filled.
+template <int D, int ROWS, int NTH = NT>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* base,
                                           int64_t stride, int row0, int S,
                                           int tid) {
   constexpr int CH = Tile<D>::CHUNKS;
-  static_assert(ROWS * CH % NT == 0, "whole chunks per thread");
+  static_assert(ROWS * CH % NTH == 0, "whole chunks per thread");
 #pragma unroll
-  for (int it = 0; it < ROWS * CH / NT; ++it) {
-    const int i = tid + it * NT;
+  for (int it = 0; it < ROWS * CH / NTH; ++it) {
+    const int i = tid + it * NTH;
     const int r = i / CH, c = i % CH;
     const bool ok = row0 + r < S;
     const __nv_bfloat16* src =
@@ -608,6 +639,406 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---- bf16 backward: wgmma on the tensor cores ------------------------------
+
+// Warpgroups a block at D <= 128: one at D = 64 (two blocks an SM), two
+// elsewhere, the faster of the two at each head dim as
+// tools/flash_bwd_variants.py times them; -DFLASH_BWD_WGS=1 or 2 sets one
+// count for every D <= 128, for that comparison.
+#ifndef FLASH_BWD_WGS
+#define FLASH_BWD_WGS 0
+#endif
+// A block's warpgroups and what they own. Each keeps ROWS resident rows
+// (keys in dK/dV, queries in dQ) and streams 64-row tiles of the other side.
+// D <= 128: each warpgroup owns 64 rows and every head-dim column (SPLIT 1).
+// D = 256: the two own the same 64 rows and each sums half the head dim
+// (SPLIT 2), computing S and dP twice.
+template <int D>
+struct Bwd {
+  static constexpr int SPLIT = D == 256 ? 2 : 1;
+  static constexpr int WGS = D == 256 ? 2                       // a block
+                             : FLASH_BWD_WGS ? FLASH_BWD_WGS
+                             : D == 64 ? 1 : 2;
+  static constexpr int THREADS = 128 * WGS;
+  static constexpr int ROWS = 64 * WGS / SPLIT;  // resident rows a block
+  static constexpr int DA = D / SPLIT;           // accumulated columns a wg
+  static constexpr int NR = DA / 64;             // its 64-column regions
+  static constexpr int HAS32 = DA % 64 == 32;    // and its 32-column one
+  static constexpr int TR = 64;                  // rows of a streamed tile
+  static constexpr int RES_BYTES = ROWS * D * 2;
+  static constexpr int TILE_BYTES = TR * D * 2;
+  // two resident tiles, two streamed tiles a stage (+ the streamed rows'
+  // lse and delta in the dK/dV kernel), + 1024 for the swizzle's alignment
+  static constexpr int SMEM_Q = 2 * RES_BYTES + 2 * STAGES * TILE_BYTES + 1024;
+  static constexpr int SMEM_KV = SMEM_Q + 2 * STAGES * TR * 4;
+  // dQ holds D/2 accumulator registers a thread, dK/dV twice that, each
+  // beside the 64 of S and dP: 256 threads an SM at most 255 registers
+  // each, so two blocks of one warpgroup, or one of two; two of two (at
+  // most 128 registers) only for dQ at D = 32
+  static constexpr int MIN_BLOCKS_Q = WGS == 1 || D <= 32 ? 2 : 1;
+  static constexpr int MIN_BLOCKS_KV = WGS == 1 ? 2 : 1;
+};
+
+// delta[row] = sum_d dO[row, d] O[row, d] in f32 for bf16 O and dO: L
+// lanes a (b, h, s) row (a power of two, at least D/8), each with one
+// 16-byte chunk of both, summed by shuffles in a fixed order
+template <int D>
+__host__ __device__ constexpr int delta_lanes() {
+  return D <= 32 ? 4 : D <= 64 ? 8 : D <= 128 ? 16 : 32;
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_delta_tc(const __nv_bfloat16* __restrict__ o,
+                   const __nv_bfloat16* __restrict__ dO,
+                   float* __restrict__ delta, int64_t rows, int H, int S,
+                   Strides so, Strides sdo) {
+  constexpr int CH = D / 8, L = delta_lanes<D>();
+  const int lane = threadIdx.x % L;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (NT / L) +
+                      threadIdx.x / L;
+  float acc = 0.f;
+  if (row < rows && lane < CH) {     // every lane joins the shuffles
+    const int s = static_cast<int>(row % S);
+    const int64_t bh = row / S;
+    const int h = static_cast<int>(bh % H);
+    const int64_t b = bh / H;
+    const uint4 x = *reinterpret_cast<const uint4*>(
+        o + b * so.b + h * so.h + s * so.s + lane * 8);
+    const uint4 g = *reinterpret_cast<const uint4*>(
+        dO + b * sdo.b + h * sdo.h + s * sdo.s + lane * 8);
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, gs[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 xf = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+      const float2 gf = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&gs[i]));
+      acc = fmaf(gf.x, xf.x, acc);
+      acc = fmaf(gf.y, xf.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && lane == 0) delta[row] = acc;
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// acc (64 x DA) += A (registers: bf16 fragment of 16 k-columns, kk-th of
+// the 64-row tile) B (the kk-th 16 rows of a 64-row swizzled tile at
+// ``tile``, read N-major, this warpgroup's head-dim regions from ``reg0``)
+template <int D>
+__device__ __forceinline__ void mma_rows(float* acc, const uint32_t (&a)[4],
+                                         uint32_t tile, int kk, int reg0) {
+  using W = Bwd<D>;
+#pragma unroll
+  for (int r = 0; r < W::NR; ++r)
+    wgmma_rs_m64n64k16(acc + 32 * r, a,
+                       desc(tile + (reg0 + r) * (W::TR * 128) + kk * 16 * 128,
+                            16, 1024, 1), 1);
+  if constexpr (W::HAS32)
+    wgmma_rs_m64n32k16(acc + 32 * W::NR, a,
+                       desc(tile + Tile<D>::N64 * (W::TR * 128) + kk * 16 * 64,
+                            16, 512, 2), 1);
+}
+
+// s = A B^T and dp = A2 B2^T (64 x 64 each, f32): A, A2 the 64 resident
+// rows from row0 of two ROWS-row tiles, B, B2 two streamed 64-row tiles,
+// summed over the whole head dim
+template <int D>
+__device__ __forceinline__ void mma_scores(float (&s)[32], float (&dp)[32],
+                                           uint32_t a, uint32_t a2,
+                                           uint32_t b, uint32_t b2,
+                                           int row0) {
+  constexpr int ROWS = Bwd<D>::ROWS;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd)
+    wgmma_ss_m64n64k16(s, desc_k<D, ROWS>(a, row0, kd),
+                       desc_k<D, 64>(b, 0, kd), kd);
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd)
+    wgmma_ss_m64n64k16(dp, desc_k<D, ROWS>(a2, row0, kd),
+                       desc_k<D, 64>(b2, 0, kd), kd);
+  wgmma_commit();
+  wgmma_wait0();
+  reg_fence(s);
+  reg_fence(dp);
+}
+
+// Store a warpgroup's 64 x DA accumulator (rows r0, r1 of the fragment,
+// columns col0..) times ``mul`` in bf16 to rows < S of a (S, D) slab.
+template <int D>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* base, int64_t stride,
+                                          const float* acc, float mul, int r0,
+                                          int r1, int col0, int S) {
+#pragma unroll
+  for (int j = 0; j < Bwd<D>::DA / 8; ++j) {
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(base + r0 * stride + col0 + j * 8) =
+          pack_bf16(acc[j * 4] * mul, acc[j * 4 + 1] * mul);
+    if (r1 < S)
+      *reinterpret_cast<uint32_t*>(base + r1 * stride + col0 + j * 8) =
+          pack_bf16(acc[j * 4 + 2] * mul, acc[j * 4 + 3] * mul);
+  }
+}
+
+// dK and dV of one (batch, kv head, ROWS keys): K and V resident, the G
+// query heads' 64-row Q and dO tiles (with their lse and delta) streamed in
+// a fixed order, transposed scores so that P^T and dS^T come out of the
+// accumulator as the register A operands of dV += P^T dO and dK += dS^T Q
+template <int D>
+__global__ void __launch_bounds__(Bwd<D>::THREADS, Bwd<D>::MIN_BLOCKS_KV)
+flash_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const __nv_bfloat16* __restrict__ dO,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, int S, int H, int G,
+                  int causal, float scale, float scale_log2, Strides sq,
+                  Strides sk, Strides sv, Strides sdo, Strides sdk,
+                  Strides sdv) {
+  using W = Bwd<D>;
+  constexpr int TR = W::TR, NTH = W::THREADS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sK = (raw + 1023) & ~1023u;
+  const uint32_t sV = sK + W::RES_BYTES;
+  const uint32_t sQ = sV + W::RES_BYTES;            // [STAGES] tiles
+  const uint32_t sG = sQ + STAGES * W::TILE_BYTES;  // dO, [STAGES] tiles
+  const uint32_t sL = sG + STAGES * W::TILE_BYTES;  // lse, [STAGES][TR]
+  const uint32_t sD = sL + STAGES * TR * 4;         // delta, [STAGES][TR]
+  const float* fL = reinterpret_cast<const float*>(smem_raw + (sL - raw));
+  const float* fD = reinterpret_cast<const float*>(smem_raw + (sD - raw));
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int k0 = static_cast<int>(blockIdx.z) * W::ROWS;  // longest first
+  const int row0 = W::SPLIT == 1 ? wg * 64 : 0;   // this wg's keys in sK
+  const int half = W::SPLIT == 1 ? 0 : wg;        // its head-dim half
+  const int kw0 = k0 + row0;
+  const int n_q = (S + TR - 1) / TR;
+  const int qt0 = causal ? k0 / TR : 0;           // tiles below are masked
+  const int per = n_q - qt0, n_t = G * per;
+
+  const __nv_bfloat16* kb = k + b * sk.b + hk * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + hk * sv.h;
+  auto load = [&](int t) {                        // tile t into its stage
+    const int h = hk * G + t / per, q0 = (qt0 + t % per) * TR;
+    const int st = t % STAGES;
+    load_tile<D, TR, NTH>(sQ + st * W::TILE_BYTES, q + b * sq.b + h * sq.h,
+                          sq.s, q0, S, tid);
+    load_tile<D, TR, NTH>(sG + st * W::TILE_BYTES,
+                          dO + b * sdo.b + h * sdo.h, sdo.s, q0, S, tid);
+    if (tid < 2 * TR) {
+      const int i = tid % TR;
+      const bool ok = q0 + i < S;
+      const float* src = (tid < TR ? lse : delta) +
+                         (static_cast<int64_t>(b) * H + h) * S +
+                         (ok ? q0 + i : 0);
+      cp_async4((tid < TR ? sL : sD) + (st * TR + i) * 4, src, ok);
+    }
+  };
+  load_tile<D, W::ROWS, NTH>(sK, kb, sk.s, k0, S, tid);
+  load_tile<D, W::ROWS, NTH>(sV, vb, sv.s, k0, S, tid);
+  load(0);
+  cp_async_commit();
+
+  // the fragment's rows are keys kr0, kr1; its columns queries
+  // q0 + 8 j + cq + {0, 1}
+  const int kr0 = kw0 + warp * 16 + lane / 4, kr1 = kr0 + 8;
+  const int cq = (lane % 4) * 2;
+  float dka[W::DA / 2], dva[W::DA / 2];
+#pragma unroll
+  for (int i = 0; i < W::DA / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int t = 0; t < n_t; ++t) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();                 // tile t is in shared memory
+    if (t + 1 < n_t) {
+      load(t + 1);
+      cp_async_commit();
+    }
+    const int q0 = (qt0 + t % per) * TR, st = t % STAGES;
+    // keys past S, or a tile wholly above this warpgroup's keys, add nothing
+    if (kw0 >= S || (causal && q0 + TR - 1 < kw0)) continue;
+    const uint32_t tQ = sQ + st * W::TILE_BYTES, tG = sG + st * W::TILE_BYTES;
+    float s[32], dp[32];
+    mma_scores<D>(s, dp, sK, sV, tQ, tG, row0);   // S^T = K Q^T, dP^T = V dO^T
+
+    // P^T and dS^T, 0 where the query is past S or before the key
+    const bool edge = (causal && q0 < kw0 + 63) || q0 + TR > S;
+    uint32_t pa[16], da[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = st * TR + j * 8 + cq;      // this thread's two queries
+      const float2 l = *reinterpret_cast<const float2*>(fL + c);
+      const float2 dl = *reinterpret_cast<const float2*>(fD + c);
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float le = e & 1 ? l.y : l.x, de = e & 1 ? dl.y : dl.x;
+        p[e] = ex2(fmaf(s[j * 4 + e], scale_log2, -le * LOG2E));
+        if (edge) {
+          const int qi = q0 + j * 8 + cq + (e & 1);
+          if (qi >= S || (causal && (e < 2 ? kr0 : kr1) > qi)) p[e] = 0.f;
+        }
+        ds[e] = p[e] * (dp[j * 4 + e] - de);
+      }
+      pa[j * 2] = pack_bf16(p[0], p[1]);
+      pa[j * 2 + 1] = pack_bf16(p[2], p[3]);
+      da[j * 2] = pack_bf16(ds[0], ds[1]);
+      da[j * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dV += P^T dO, dK += dS^T Q, 16 queries a wgmma
+    reg_fence(dva);
+    reg_fence(dka);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TR / 16; ++kk) {
+      const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                             pa[4 * kk + 3]};
+      mma_rows<D>(dva, a, tG, kk, half * W::NR);
+      const uint32_t a2[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                              da[4 * kk + 3]};
+      mma_rows<D>(dka, a2, tQ, kk, half * W::NR);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(dva);
+    reg_fence(dka);
+  }
+
+  const int c0 = half * W::DA + cq;
+  store_acc<D>(dk + b * sdk.b + hk * sdk.h, sdk.s, dka, scale, kr0, kr1, c0,
+               S);
+  store_acc<D>(dv + b * sdv.b + hk * sdv.h, sdv.s, dva, 1.f, kr0, kr1, c0, S);
+}
+
+// dQ of one (batch, q head, ROWS queries): Q and dO resident, 64-key K and
+// V tiles streamed up to the diagonal; dS comes out of the accumulator as
+// the register A operand of dQ += dS K (the forward's P V with K for V)
+template <int D>
+__global__ void __launch_bounds__(Bwd<D>::THREADS, Bwd<D>::MIN_BLOCKS_Q)
+flash_bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                const __nv_bfloat16* __restrict__ dO,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dq, int S, int H, int G,
+                int causal, float scale, float scale_log2, Strides sq,
+                Strides sk, Strides sv, Strides sdo, Strides sdq) {
+  using W = Bwd<D>;
+  constexpr int TR = W::TR, NTH = W::THREADS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sQ = (raw + 1023) & ~1023u;
+  const uint32_t sG = sQ + W::RES_BYTES;            // dO
+  const uint32_t sK = sG + W::RES_BYTES;            // [STAGES] tiles
+  const uint32_t sV = sK + STAGES * W::TILE_BYTES;  // [STAGES] tiles
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / G;
+  const int n_qb = (S + W::ROWS - 1) / W::ROWS;
+  const int q0 = (n_qb - 1 - static_cast<int>(blockIdx.z)) * W::ROWS;
+  const int row0 = W::SPLIT == 1 ? wg * 64 : 0;
+  const int half = W::SPLIT == 1 ? 0 : wg;
+  const int qw0 = q0 + row0;
+  const int n_all = (S + TR - 1) / TR;
+  const int n_kt = causal ? min(n_all, (q0 + W::ROWS - 1) / TR + 1) : n_all;
+
+  const __nv_bfloat16* kb = k + b * sk.b + hk * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + hk * sv.h;
+  load_tile<D, W::ROWS, NTH>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
+  load_tile<D, W::ROWS, NTH>(sG, dO + b * sdo.b + h * sdo.h, sdo.s, q0, S,
+                             tid);
+  load_tile<D, TR, NTH>(sK, kb, sk.s, 0, S, tid);
+  load_tile<D, TR, NTH>(sV, vb, sv.s, 0, S, tid);
+  cp_async_commit();
+
+  const int r0 = qw0 + warp * 16 + lane / 4, r1 = r0 + 8;
+  const int cq = (lane % 4) * 2;
+  const int64_t lrow = (static_cast<int64_t>(b) * H + h) * S;
+  const float l0 = r0 < S ? lse[lrow + r0] * LOG2E : 0.f;
+  const float l1 = r1 < S ? lse[lrow + r1] * LOG2E : 0.f;
+  const float d0 = r0 < S ? delta[lrow + r0] : 0.f;
+  const float d1 = r1 < S ? delta[lrow + r1] : 0.f;
+  float acc[W::DA / 2];
+#pragma unroll
+  for (int i = 0; i < W::DA / 2; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();                 // tile kt is in shared memory
+    if (kt + 1 < n_kt) {
+      const uint32_t nst = ((kt + 1) % STAGES) * W::TILE_BYTES;
+      load_tile<D, TR, NTH>(sK + nst, kb, sk.s, (kt + 1) * TR, S, tid);
+      load_tile<D, TR, NTH>(sV + nst, vb, sv.s, (kt + 1) * TR, S, tid);
+      cp_async_commit();
+    }
+    const int k0 = kt * TR;
+    // a tile wholly above this warpgroup's diagonal, or a warpgroup wholly
+    // past S, has nothing to add
+    if (qw0 >= S || (causal && k0 > qw0 + 63)) continue;
+    const uint32_t st = (kt % STAGES) * W::TILE_BYTES;
+    float s[32], dp[32];
+    mma_scores<D>(s, dp, sQ, sG, sK + st, sV + st, row0);  // S, dP = dO V^T
+
+    // dS, 0 where the key is past S or past the query
+    const bool edge = (causal && k0 + TR - 1 > qw0) || k0 + TR > S;
+    uint32_t da[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(fmaf(s[j * 4 + e], scale_log2, -(e < 2 ? l0 : l1)));
+        if (edge) {
+          const int kj = k0 + j * 8 + cq + (e & 1);
+          if (kj >= S || (causal && kj > (e < 2 ? r0 : r1))) p = 0.f;
+        }
+        ds[e] = p * (dp[j * 4 + e] - (e < 2 ? d0 : d1));
+      }
+      da[j * 2] = pack_bf16(ds[0], ds[1]);
+      da[j * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dQ += dS K, 16 keys a wgmma
+    reg_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TR / 16; ++kk) {
+      const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                             da[4 * kk + 3]};
+      mma_rows<D>(acc, a, sK + st, kk, half * W::NR);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(acc);
+  }
+
+  store_acc<D>(dq + b * sdq.b + h * sdq.h, sdq.s, acc, scale, r0, r1,
+               half * W::DA + cq, S);
+}
+
 }  // namespace tc
 
 // ---- backward: f32 FMAs on the CUDA cores ---------------------------------
@@ -629,23 +1060,21 @@ struct Tile {
 
 // rows [row0, row0 + BT) of a (S, D) slab into a padded f32 tile; rows past
 // S are zeros
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* base,
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* base,
                                           int64_t stride, int row0, int S,
                                           int tid) {
   using W = Tile<D>;
   for (int i = tid; i < W::BT * D; i += NT) {
     const int r = i / D, d = i % D;
-    dst[r * W::LD + d] =
-        row0 + r < S ? to_f32(base[(row0 + r) * stride + d]) : 0.f;
+    dst[r * W::LD + d] = row0 + r < S ? base[(row0 + r) * stride + d] : 0.f;
   }
 }
 
 // delta[row] = sum_d dO[row, d] O[row, d] in f32, one warp a (b, h, s) row,
 // lanes summed by shuffles in a fixed order
-template <typename T>
 __global__ void __launch_bounds__(NT)
-flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dO,
+flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dO,
                 float* __restrict__ delta, int64_t rows, int H, int S, int D,
                 Strides so, Strides sdo) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (NT / 32) +
@@ -656,10 +1085,10 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dO,
   const int64_t bh = row / S;
   const int h = static_cast<int>(bh % H);
   const int64_t b = bh / H;
-  const T* op = o + b * so.b + h * so.h + s * so.s;
-  const T* gp = dO + b * sdo.b + h * sdo.h + s * sdo.s;
+  const float* op = o + b * so.b + h * so.h + s * so.s;
+  const float* gp = dO + b * sdo.b + h * sdo.h + s * sdo.s;
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc = fmaf(to_f32(gp[d]), to_f32(op[d]), acc);
+  for (int d = lane; d < D; d += 32) acc = fmaf(gp[d], op[d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -667,14 +1096,14 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dO,
 }
 
 // dK and dV of one (batch, kv head, key tile)
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT, 1)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dO,
+flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dO,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               T* __restrict__ dk, T* __restrict__ dv, int S, int H, int G,
-               int causal, float scale, Strides sq, Strides sk, Strides sv,
-               Strides sdo, Strides sdk, Strides sdv) {
+               float* __restrict__ dk, float* __restrict__ dv, int S, int H,
+               int G, int causal, float scale, Strides sq, Strides sk,
+               Strides sv, Strides sdo, Strides sdk, Strides sdv) {
   using W = Tile<D>;
   constexpr int BT = W::BT, RS = W::RS, DC = W::DC, LD = W::LD, LP = W::LP;
   extern __shared__ float smem[];
@@ -690,8 +1119,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, rg = tid / 16, cl = tid % 16;
   const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int k0 = kt * BT, n_t = (S + BT - 1) / BT;
-  load_rows<T, D>(Ks, k + b * sk.b + hk * sk.h, sk.s, k0, S, tid);
-  load_rows<T, D>(Vs, v + b * sv.b + hk * sv.h, sv.s, k0, S, tid);
+  load_rows<D>(Ks, k + b * sk.b + hk * sk.h, sk.s, k0, S, tid);
+  load_rows<D>(Vs, v + b * sv.b + hk * sv.h, sv.s, k0, S, tid);
 
   float dka[RS][DC], dva[RS][DC];
 #pragma unroll
@@ -706,8 +1135,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     for (int qt = causal ? kt : 0; qt < n_t; ++qt) {
       const int q0 = qt * BT;
       __syncthreads();               // the last tile's readers are done
-      load_rows<T, D>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
-      load_rows<T, D>(Os, dO + b * sdo.b + h * sdo.h, sdo.s, q0, S, tid);
+      load_rows<D>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
+      load_rows<D>(Os, dO + b * sdo.b + h * sdo.h, sdo.s, q0, S, tid);
       for (int i = tid; i < BT; i += NT) {
         Ls[i] = q0 + i < S ? lh[q0 + i] : 0.f;
         Dl[i] = q0 + i < S ? dh[q0 + i] : 0.f;
@@ -775,28 +1204,29 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dkb = dk + b * sdk.b + hk * sdk.h;
-  T* dvb = dv + b * sdv.b + hk * sdv.h;
+  float* dkb = dk + b * sdk.b + hk * sdk.h;
+  float* dvb = dv + b * sdv.b + hk * sdv.h;
 #pragma unroll
   for (int i = 0; i < RS; ++i) {
     const int key = k0 + rg * RS + i;
     if (key >= S) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      dkb[key * sdk.s + cl + 16 * c] = from_f32<T>(dka[i][c] * scale);
-      dvb[key * sdv.s + cl + 16 * c] = from_f32<T>(dva[i][c]);
+      dkb[key * sdk.s + cl + 16 * c] = dka[i][c] * scale;
+      dvb[key * sdv.s + cl + 16 * c] = dva[i][c];
     }
   }
 }
 
 // dQ of one (batch, q head, query tile)
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT, 1)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dO,
+flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dO,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dq, int S, int H, int G, int causal, float scale,
-             Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq) {
+             float* __restrict__ dq, int S, int H, int G, int causal,
+             float scale, Strides sq, Strides sk, Strides sv, Strides sdo,
+             Strides sdq) {
   using W = Tile<D>;
   constexpr int BT = W::BT, RS = W::RS, DC = W::DC, LD = W::LD, LP = W::LP;
   extern __shared__ float smem[];
@@ -813,8 +1243,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int qt = n_t - 1 - static_cast<int>(blockIdx.x);   // longest first
   const int h = blockIdx.y, b = blockIdx.z, hk = h / G;
   const int q0 = qt * BT;
-  load_rows<T, D>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
-  load_rows<T, D>(Os, dO + b * sdo.b + h * sdo.h, sdo.s, q0, S, tid);
+  load_rows<D>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
+  load_rows<D>(Os, dO + b * sdo.b + h * sdo.h, sdo.s, q0, S, tid);
   const int64_t lrow = (static_cast<int64_t>(b) * H + h) * S;
   for (int i = tid; i < BT; i += NT) {
     Ls[i] = q0 + i < S ? lse[lrow + q0 + i] : 0.f;
@@ -831,8 +1261,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BT;
     __syncthreads();
-    load_rows<T, D>(Ks, k + b * sk.b + hk * sk.h, sk.s, k0, S, tid);
-    load_rows<T, D>(Vs, v + b * sv.b + hk * sv.h, sv.s, k0, S, tid);
+    load_rows<D>(Ks, k + b * sk.b + hk * sk.h, sk.s, k0, S, tid);
+    load_rows<D>(Vs, v + b * sv.b + hk * sv.h, sv.s, k0, S, tid);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T: queries rg RS + i, keys cl + 16 j
@@ -887,14 +1317,14 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqb = dq + b * sdq.b + h * sdq.h;
+  float* dqb = dq + b * sdq.b + h * sdq.h;
 #pragma unroll
   for (int i = 0; i < RS; ++i) {
     const int qi = q0 + rg * RS + i;
     if (qi >= S) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      dqb[qi * sdq.s + cl + 16 * c] = from_f32<T>(dqa[i][c] * scale);
+      dqb[qi * sdq.s + cl + 16 * c] = dqa[i][c] * scale;
   }
 }
 
@@ -966,58 +1396,105 @@ int launch_fwd(int dtype, const void* q, const void* k, const void* v,
 }
 
 // st: q, k, v, o, dO, dq, dk, dv
-template <typename T, int D>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+template <int D>
+int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                const float* lse, const void* dO, float* delta, void* dq,
                void* dk, void* dv, int64_t B, int64_t H, int64_t S,
                int64_t G, int causal, float scale, const Strides* st,
                cudaStream_t stream) {
   using W = bwd::Tile<D>;
   static uint64_t done_kv = 0, done_q = 0;
-  int e = allow_smem(bwd::flash_bwd_dkdv<T, D>, W::SMEM, &done_kv);
+  int e = allow_smem(bwd::flash_bwd_dkdv<D>, W::SMEM, &done_kv);
   if (e) return e;
-  e = allow_smem(bwd::flash_bwd_dq<T, D>, W::SMEM, &done_q);
+  e = allow_smem(bwd::flash_bwd_dq<D>, W::SMEM, &done_q);
   if (e) return e;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* gt = static_cast<const T*>(dO);
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* gt = static_cast<const float*>(dO);
   const int64_t rows = B * H * S;
-  bwd::flash_bwd_delta<T><<<static_cast<unsigned>((rows + 7) / 8), bwd::NT, 0,
+  bwd::flash_bwd_delta<<<static_cast<unsigned>((rows + 7) / 8), bwd::NT, 0,
                             stream>>>(
-      static_cast<const T*>(o), gt, delta, rows, static_cast<int>(H),
+      static_cast<const float*>(o), gt, delta, rows, static_cast<int>(H),
       static_cast<int>(S), D, st[3], st[4]);
   e = static_cast<int>(cudaGetLastError());
   if (e) return e;
   const unsigned n_t = static_cast<unsigned>((S + W::BT - 1) / W::BT);
-  bwd::flash_bwd_dkdv<T, D><<<dim3(n_t, static_cast<unsigned>(H / G),
+  bwd::flash_bwd_dkdv<D><<<dim3(n_t, static_cast<unsigned>(H / G),
                                    static_cast<unsigned>(B)),
                               bwd::NT, W::SMEM, stream>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      qt, kt, vt, gt, lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv),
       static_cast<int>(S), static_cast<int>(H), static_cast<int>(G), causal,
       scale, st[0], st[1], st[2], st[4], st[6], st[7]);
   e = static_cast<int>(cudaGetLastError());
   if (e) return e;
-  bwd::flash_bwd_dq<T, D><<<dim3(n_t, static_cast<unsigned>(H),
+  bwd::flash_bwd_dq<D><<<dim3(n_t, static_cast<unsigned>(H),
                                  static_cast<unsigned>(B)),
                             bwd::NT, W::SMEM, stream>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), static_cast<int>(S),
+      qt, kt, vt, gt, lse, delta, static_cast<float*>(dq), static_cast<int>(S),
       static_cast<int>(H), static_cast<int>(G), causal, scale, st[0], st[1],
       st[2], st[4], st[5]);
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16: the delta pre-pass, then dK/dV and dQ on the tensor cores
+template <int D>
+int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o,
+                  const float* lse, const void* dO, float* delta, void* dq,
+                  void* dk, void* dv, int64_t B, int64_t H, int64_t S,
+                  int64_t G, int causal, float scale, const Strides* st,
+                  cudaStream_t stream) {
+  using W = tc::Bwd<D>;
+  using bf = __nv_bfloat16;
+  static uint64_t done_kv = 0, done_q = 0;
+  int e = allow_smem(tc::flash_bwd_dkdv_tc<D>, W::SMEM_KV, &done_kv);
+  if (e) return e;
+  e = allow_smem(tc::flash_bwd_dq_tc<D>, W::SMEM_Q, &done_q);
+  if (e) return e;
+  const bf* qt = static_cast<const bf*>(q);
+  const bf* kt = static_cast<const bf*>(k);
+  const bf* vt = static_cast<const bf*>(v);
+  const bf* gt = static_cast<const bf*>(dO);
+  const int64_t rows = B * H * S;
+  constexpr int per_block = tc::NT / tc::delta_lanes<D>();   // rows
+  tc::flash_bwd_delta_tc<D><<<static_cast<unsigned>(
+                                  (rows + per_block - 1) / per_block),
+                              tc::NT, 0, stream>>>(
+      static_cast<const bf*>(o), gt, delta, rows, static_cast<int>(H),
+      static_cast<int>(S), st[3], st[4]);
+  e = static_cast<int>(cudaGetLastError());
+  if (e) return e;
+  const unsigned n_b = static_cast<unsigned>((S + W::ROWS - 1) / W::ROWS);
+  tc::flash_bwd_dkdv_tc<D><<<dim3(static_cast<unsigned>(H / G),
+                                  static_cast<unsigned>(B), n_b),
+                             W::THREADS, W::SMEM_KV, stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv),
+      static_cast<int>(S), static_cast<int>(H), static_cast<int>(G), causal,
+      scale, scale * tc::LOG2E, st[0], st[1], st[2], st[4], st[6], st[7]);
+  e = static_cast<int>(cudaGetLastError());
+  if (e) return e;
+  tc::flash_bwd_dq_tc<D><<<dim3(static_cast<unsigned>(H),
+                                static_cast<unsigned>(B), n_b),
+                           W::THREADS, W::SMEM_Q, stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<bf*>(dq), static_cast<int>(S),
+      static_cast<int>(H), static_cast<int>(G), causal, scale,
+      scale * tc::LOG2E, st[0], st[1], st[2], st[4], st[5]);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dtype picks the route: f32 the CUDA-core kernels, bf16 wgmma.
 template <int D>
 int launch_bwd_dt(int dtype, const void* q, const void* k, const void* v,
                   const void* o, const float* lse, const void* dO,
                   float* delta, void* dq, void* dk, void* dv, int64_t B,
                   int64_t H, int64_t S, int64_t G, int causal, float scale,
                   const Strides* st, cudaStream_t stream) {
-  if (dtype == 0)
-    return launch_bwd<float, D>(q, k, v, o, lse, dO, delta, dq, dk, dv, B, H,
+  return dtype == 0
+             ? launch_bwd_f32<D>(q, k, v, o, lse, dO, delta, dq, dk, dv, B, H,
+                                 S, G, causal, scale, st, stream)
+             : launch_bwd_tc<D>(q, k, v, o, lse, dO, delta, dq, dk, dv, B, H,
                                 S, G, causal, scale, st, stream);
-  return launch_bwd<__nv_bfloat16, D>(q, k, v, o, lse, dO, delta, dq, dk, dv,
-                                      B, H, S, G, causal, scale, st, stream);
 }
 
 }  // namespace

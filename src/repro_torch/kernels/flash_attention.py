@@ -16,9 +16,12 @@ projections. The kernels take the head dims of every config in the repo,
 Training: ``FlashAttention`` is the autograd ``Function`` around the kernel.
 Its forward also writes each query row's f32 log-sum-exp; its backward,
 ``flash_attention_bwd`` (no TPU counterpart: the reference's forward is jnp
-code that XLA differentiates), is three launches of the same source on the
-CUDA cores in f32 (delta = rowsum(dO o O), dK/dV per key tile, dQ per query
-tile), with no atomics, so two calls give the same bits.
+code that XLA differentiates), is three launches of the same source
+(delta = rowsum(dO o O), dK/dV per key tile, dQ per query tile), with no
+atomics, so two calls give the same bits. The dtype picks the route as in
+the forward: bf16 runs the dK/dV and dQ products on the tensor cores
+(wgmma, P and dS rounded to bf16 as operands), f32 on the CUDA cores in
+f32.
 """
 from __future__ import annotations
 
@@ -92,6 +95,20 @@ def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return B, H, S, D, G
 
 
+def _misaligned(t: torch.Tensor) -> bool:
+    """Whether a bf16 kernel's 16-byte row loads cannot read ``t``: its base
+    pointer or a (batch, head, seq) stride is not 16-byte aligned."""
+    return t.dtype == torch.bfloat16 and bool(
+        t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3)))
+
+
+def _check_aligned(name: str, *ts: torch.Tensor) -> None:
+    if any(map(_misaligned, ts)):
+        raise ValueError(f"{name}: the bf16 kernels load 16-byte rows: base "
+                         "pointers and (batch, head, seq) strides must be "
+                         "16-byte aligned")
+
+
 def _strides(*ts) -> ctypes.Array:
     return (ctypes.c_int64 * (3 * len(ts)))(*(t.stride(i) for t in ts
                                                for i in range(3)))
@@ -133,12 +150,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the f32 log-sum-exp of each query row's scaled scores, (B,H,S) (else
     the kernel is given a null pointer and writes none)."""
     B, H, S, D, G = check_kernel_args(q, k, v)
-    if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3))
-            for t in (q, k, v)):
-        raise ValueError("flash_attention: the bf16 kernel loads 16-byte "
-                         "rows: base pointers and (batch, head, seq) strides "
-                         "must be 16-byte aligned")
+    _check_aligned("flash_attention", q, k, v)
     o = _seq_major(B, S, H, D, q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -189,9 +201,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients (dq, dk, dv) of ``flash_attention`` for the output
     gradient ``do``, from the forward's ``o`` and ``lse``: three launches on
     CUDA tensors, in q's dtype, each a view of a seq-major contiguous
-    tensor as the forward's output is."""
+    tensor as the forward's output is. bf16 runs dK/dV and dQ on the
+    tensor cores, rounding P and dS to bf16 before their products (f32
+    scores, delta and sums): q, k, v, o and do must be 16-byte aligned as
+    for the bf16 forward. f32 runs them on the CUDA cores in f32."""
     check_kernel_args(q, k, v)
     B, H, S, D, G = check_bwd_args(q, k, v, o, lse, do)
+    _check_aligned("flash_attention_bwd", q, k, v, o, do)
     dq = _seq_major(B, S, H, D, q)
     dk = _seq_major(B, S, H // G, D, q)
     dv = _seq_major(B, S, H // G, D, q)
@@ -217,7 +233,8 @@ class FlashAttention(torch.autograd.Function):
     """The attention kernel with its backward on kernels too: the forward
     saves its output and log-sum-exp, the backward is
     ``flash_attention_bwd``. An output gradient whose head dim is not
-    contiguous is copied first (the kernels read rows of it)."""
+    contiguous, or that the bf16 kernels cannot read in 16-byte rows, is
+    copied first."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
@@ -229,7 +246,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do) -> Tuple[Optional[torch.Tensor], ...]:
         q, k, v, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
+        if do.stride(-1) != 1 or _misaligned(do):
             do = do.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal)
         return dq, dk, dv, None

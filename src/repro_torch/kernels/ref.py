@@ -164,15 +164,18 @@ def flash_bwd_limit(want: Tuple[torch.Tensor, ...], q: torch.Tensor,
     (dq, dk, dv) against ``want``, ``flash_attention_bwd`` in f32 on the
     same (upcast) inputs:
 
-        tol (1 + M) [+ 2^-8 |want| for bf16 outputs]
+        tol (1 + M) [+ 2^-8 (|want| + M) for bf16]
 
     M is each gradient's magnitude, the same sums taken over the absolute
     values of their terms (P, |dO| |V|^T + rowsum|dO o O|, |Q|, |K|): the
     f32 sums of the kernels and of the plain version round in other orders,
     and a sum's rounding error is bounded by its terms' magnitude, not by
-    its value (dS cancels in dP - delta). The kernel reads bf16 inputs
-    exactly and computes in f32, so bf16 adds one rounding of each output
-    (at most 2^-9 relative)."""
+    its value (dS cancels in dP - delta). The bf16 kernels read their
+    inputs exactly and compute S, dP, delta and every sum in f32, but
+    round P and dS to bf16 (each at most 2^-9 relative) as the operands of
+    the dV, dK and dQ products, which moves each sum by at most 2^-9 M,
+    and round each output (2^-9 |want|); 2^-8 covers both with a factor
+    two to spare."""
     B, H, S, D = q.shape
     K = k.shape[1]
     G = H // K
@@ -189,7 +192,8 @@ def flash_bwd_limit(want: Tuple[torch.Tensor, ...], q: torch.Tensor,
             .reshape(B, K, G, S, D).sum(2),
             torch.matmul(p.transpose(-1, -2), da).reshape(B, K, G, S, D)
             .sum(2))
-    return tuple(tol * (1 + m) + (BF16_ULP * w.float().abs() if bf16 else 0)
+    return tuple(tol * (1 + m) + (BF16_ULP * (w.float().abs() + m)
+                                  if bf16 else 0)
                  for m, w in zip(mags, want))
 
 

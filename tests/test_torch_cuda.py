@@ -522,8 +522,10 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, D, dtype, causal,
                                                        H, K, S):
     """dq, dk, dv against the plain backward in f32 on the same (upcast)
     inputs, within ref.flash_bwd_limit (ATTN_TOL times each gradient's
-    magnitude, + the bf16 output rounding), the same bits on a second call,
-    and the forward's log-sum-exp against the plain one."""
+    magnitude, + in bf16 2^-8 (|value| + magnitude) for the output rounding
+    and the tensor-core route's P and dS rounded to bf16 as operands), the
+    same bits on a second call, and the forward's log-sum-exp against the
+    plain one."""
     q, k, v, o, lse, do = _attn_case(cuda, 2, H, K, S, D, dtype, causal,
                                      D + S + H)
     before = flash_attention.flash_attention_bwd.launches
@@ -545,7 +547,7 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, D, dtype, causal,
 
 def test_flash_attention_backward_at_the_llama_shape(cuda):
     """B=2, S=2048, 32 query heads over 8 kv heads of 64, causal, bf16: the
-    main path's call."""
+    main path's call, on the tensor cores, within the bf16 bound."""
     q, k, v, o, lse, do = _attn_case(cuda, 2, 32, 8, 2048, 64,
                                      torch.bfloat16, True, 5)
     got = ops.flash_attention_bwd(q, k, v, o, lse, do, True)
@@ -555,6 +557,45 @@ def test_flash_attention_backward_at_the_llama_shape(cuda):
                                True)
     for g, w, lim in zip(got, want, lims):
         assert bool(((g.float() - w).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_backward_bf16_at_large_head_dims(cuda, D, causal):
+    """The tensor-core backward where its registers are tightest (dK and
+    dV of 64 keys at D=128; at D=256 each warpgroup sums half the head
+    dim): several key blocks, a ragged S, grouped heads, within the bf16
+    bound and the same bits on a second call."""
+    q, k, v, o, lse, do = _attn_case(cuda, 2, 8, 2, 1000, D,
+                                     torch.bfloat16, causal, D + 7)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                   o.float(), lse, do.float(), causal)
+    lims = ref.flash_bwd_limit(want, q, k, v, o, lse, do, causal, ATTN_TOL,
+                               True)
+    for g, a, w, lim in zip(got, again, want, lims):
+        assert torch.equal(g, a)
+        assert bool(((g.float() - w).abs() <= lim).all())
+
+
+def test_flash_attention_backward_bf16_refuses_misaligned_rows(cuda):
+    """The bf16 backward loads 16-byte rows: a seq stride that is not a
+    multiple of 8 elements raises, as in the forward, and the Function
+    copies such an output gradient instead."""
+    q, k, v, o, lse, do = _attn_case(cuda, 1, 2, 2, 10, 64, torch.bfloat16,
+                                     True, 3)
+    wide = torch.randn(1, 2, 10, 68, generator=_gen(4)).to(cuda,
+                                                           torch.bfloat16)
+    bad = wide[..., :64]                  # seq stride 68: 136-byte rows
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention_bwd(q, k, v, o, lse, bad, True)
+    a = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ops.flash_attention(*a, True).backward(bad)
+    want = ops.flash_attention_bwd(q, k, v, o, lse, bad.contiguous(), True)
+    for t, w in zip(a, want):
+        assert torch.equal(t.grad, w)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

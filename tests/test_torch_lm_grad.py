@@ -6,6 +6,7 @@ take against every config in the repo. The kernels themselves are held to
 their plain versions on the card in tests/test_torch_cuda.py and
 chip_smoke.py."""
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -89,6 +90,84 @@ def test_plain_attention_backward_bf16_within_its_bound(rng):
     for g, w, lim in zip(got, want, lims):
         assert g.dtype == torch.bfloat16
         assert bool(((g.float() - w).abs() <= lim).all())
+
+
+def _tensor_core_bwd(q, k, v, o, lse, do, causal, fault=None):
+    """The bf16 tensor-core backward's numerics, written out in plain f32:
+    S, dP, delta and every sum in f32, P and dS rounded to bf16 as the
+    operands of the dV, dK and dQ products, dK and dV summed over the
+    group in f32, the outputs rounded to bf16. ``fault`` wires in one
+    mistake: "swap" (dK and dV exchanged), "scale" (dK without its scale)
+    or "mask" (the causal mask shifted by one, dropping the diagonal)."""
+    B, H, S, D = q.shape
+    K = k.shape[1]
+    G = H // K
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    kr, vr = kf.repeat_interleave(G, 1), vf.repeat_interleave(G, 1)
+    scale = 1.0 / math.sqrt(D)
+    s = qf @ kr.transpose(-1, -2) * scale
+    if causal:
+        keep = torch.ones(S, S, dtype=torch.bool).tril(
+            -1 if fault == "mask" else 0)
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    ds = p * (dof @ vr.transpose(-1, -2) - (dof * of).sum(-1, keepdim=True))
+
+    def operand(t):
+        return t.bfloat16().float()
+    dq = operand(ds) @ kr * scale
+    dk = (operand(ds).transpose(-1, -2) @ qf
+          * (1.0 if fault == "scale" else scale)).reshape(B, K, G, S, D)
+    dv = (operand(p).transpose(-1, -2) @ dof).reshape(B, K, G, S, D)
+    dk, dv = dk.sum(2), dv.sum(2)
+    if fault == "swap":
+        dk, dv = dv, dk
+    return tuple(t.bfloat16() for t in (dq, dk, dv))
+
+
+def _bf16_case(rng, h, kv, s, d, causal):
+    """bf16 inputs, the plain forward's o and lse, the f32 plain backward
+    on the upcast inputs and its ``ref.flash_bwd_limit`` for bf16."""
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(2, n, s, d)).astype(
+        np.float32)).bfloat16() for n in (h, kv, kv, h))
+    o = ref.flash_attention(q, k, v, causal)
+    lse = ref.flash_attention_lse(q, k, causal)
+    want = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                   o.float(), lse, do.float(), causal)
+    lims = ref.flash_bwd_limit(want, q, k, v, o, lse, do, causal, 3e-5, True)
+    return (q, k, v, o, lse, do), want, lims
+
+
+def _worst(got, want, lims):
+    """The largest |got - want| over its bound, over dq, dk and dv."""
+    return max(float(((g.float() - w).abs() / lim).max())
+               for g, w, lim in zip(got, want, lims))
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("h,kv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_bwd_numerics_within_the_bf16_bound(rng, d, h, kv,
+                                                        causal):
+    """P and dS rounded to bf16 before their products (the bf16 kernels'
+    numerics, emulated) stay within ``ref.flash_bwd_limit``'s bf16 bound
+    at every kernel head dim, grouped heads or not, S ragged for the
+    64-row tiles."""
+    args, want, lims = _bf16_case(rng, h, kv, 70, d, causal)
+    got = _tensor_core_bwd(*args, causal)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    assert _worst(got, want, lims) <= 1.0
+
+
+@pytest.mark.parametrize("fault", ["swap", "scale", "mask"])
+@pytest.mark.parametrize("d", [32, 256])
+def test_tensor_core_bwd_wiring_faults_fail_the_bf16_bound(rng, fault, d):
+    """The bf16 bound still sees a wiring fault: dK and dV swapped, dK's
+    scale dropped, or the causal mask shifted by one each put an element
+    over 50 times its bound (the faultless emulation stays under it)."""
+    args, want, lims = _bf16_case(rng, 8, 2, 70, d, True)
+    assert _worst(_tensor_core_bwd(*args, True), want, lims) <= 1.0
+    assert _worst(_tensor_core_bwd(*args, True, fault), want, lims) > 50.0
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 4, 8, 16), (1, 1, 3, 5, 7),
