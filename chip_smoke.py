@@ -43,6 +43,7 @@ JSON line with the kernels' numbers, and the result line
 {"ok": true, "device": {...}}. The per-shape details go to
 build/chip_smoke.json.
 """
+import ctypes
 import json
 import re
 import statistics
@@ -758,9 +759,9 @@ U32 = 2.0 ** -24                 # f32 unit roundoff
 # version evaluated in f64 (its own error negligible), the kernel's error
 # held to depth x 2^-24 x sum|x g| over that channel's products: a sum whose
 # every term passes through at most ``depth`` f32 roundings
-# (``wgrad_plan``: the thread's chain, the block's and the second pass's
-# sums) is off by at most that much, whatever the terms cancel to; a bound
-# on the result itself would fail wherever the sum cancels
+# (``wgrad_plan``: the thread's chain, then the block's, the cluster's and
+# the rows' sums) is off by at most that much, whatever the terms cancel
+# to; a bound on the result itself would fail wherever the sum cancels
 # the Function's gradients against autograd of the plain forward, whose
 # own f32 sums take an order we do not bound: dx within DW_TOL (as the
 # forward), dw within WIRING_TOL x sum|x g| (a wiring fault, a turned or
@@ -789,8 +790,8 @@ def train_slice(dev, gen, report, dw_shapes):
 
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import depthwise_conv as dwk
-    from repro_torch.kernels import ops, ref
     from repro_torch.launch import train_xr
     from repro_torch.models import xr
     from repro_torch.train import loop, optim
@@ -807,8 +808,22 @@ def train_slice(dev, gen, report, dw_shapes):
     check(len(all_shapes) == 26, f"{len(all_shapes)} training depthwise "
           "shapes, not 26")
 
+    def conv_wgrad(x, g):     # PyTorch's weight gradient: the yardstick
+        xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        return torch.ops.aten.convolution_backward(
+            gc, xc, torch.empty(x.shape[-1], 1, 3, 3, device=x.device),
+            None, [1, 1], [1, 1], [1, 1], False, [0, 0], x.shape[-1],
+            [False, True, False])[1]
+
+    floor_fn = _build.library("depthwise_conv").launch_floor_launch
+    floor_fn.argtypes, floor_fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch_floor():       # an empty kernel: no launch takes less
+        _build.check_launch("depthwise_conv", floor_fn(
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)))
+
     # -- T1. the backward's pieces against their plain versions ------------
-    inputs, err, worst = [], 0.0, 0.0
+    inputs, err, worst, lib_off = [], 0.0, 0.0, 0.0
     for shape in all_shapes:
         C = shape[-1]
         x = torch.randn(shape, generator=gen).to(dev)
@@ -834,6 +849,13 @@ def train_slice(dev, gen, report, dw_shapes):
         worst = max(worst, float((off / bound)[bound > 0].max()))
         err = max(err, float((dw1 - ref.depthwise_conv3x3_wgrad(x, g))
                              .abs().max()))
+        # cuDNN's weight gradient (full f32, deterministic here), whose own
+        # order is not bounded: held as the Function's dw is, below
+        lim = WIRING_TOL * mag
+        lib = (conv_wgrad(x, g).double() - dw1.double()).abs()
+        check(bool((lib <= lim).all()), f"dw {shape}: off cuDNN's weight "
+              f"gradient by {float(lib.max())}")
+        lib_off = max(lib_off, float((lib / lim)[lim > 0].max()))
         # the Function against autograd of the plain forward
         r = torch.randn(shape, generator=gen).to(dev)
         xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -849,7 +871,8 @@ def train_slice(dev, gen, report, dw_shapes):
     print(f"T1 backward vs plain: {len(all_shapes)} training depthwise "
           f"shapes: dx within {DW_TOL['float32']}, dw bit-identical run to "
           f"run and within {worst:.3g} of its rounding bound off the f64 "
-          f"sum (max abs err vs the f32 plain version {err:.3g}); the "
+          f"sum (max abs err vs the f32 plain version {err:.3g}), within "
+          f"{lib_off:.3g} of {WIRING_TOL} x sum|x g| of cuDNN's; the "
           "Function's gradients match autograd of the plain forward")
 
     # -- T2. the main path: run_xr_training on the card, counted ----------
@@ -996,13 +1019,6 @@ def train_slice(dev, gen, report, dw_shapes):
     # -- T4. times, with cuDNN's default algorithm choice again -----------
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
         det_flags
-    def conv_wgrad(x, g):     # PyTorch's weight gradient: the yardstick
-        xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-        return torch.ops.aten.convolution_backward(
-            gc, xc, torch.empty(x.shape[-1], 1, 3, 3, device=x.device),
-            None, [1, 1], [1, 1], [1, 1], False, [0, 0], x.shape[-1],
-            [False, True, False])[1]
-
     check(bool(torch.allclose(conv_wgrad(*inputs[0][:2]),
                               ops.depthwise_conv3x3_wgrad(*inputs[0][:2]),
                               rtol=1e-4, atol=1e-3)),
@@ -1029,18 +1045,25 @@ def train_slice(dev, gen, report, dw_shapes):
                          for x, g, w in part],
             "library_dw": [(conv_wgrad, (x, g)) for x, g, w in part]}
         expect = {"forward": {"dw3x3_kernel": n13}, "dx": {"dw3x3_kernel":
-                  n13}, "dw": {"dw3x3_wgrad": 2 * n13}, "plain_dw": None,
+                  n13}, "dw": {"dw3x3_wgrad": n13}, "plain_dw": None,
                   "library_dw": None}
         passes[name] = {}
         for label, cl in calls.items():
             busy, _, capture = device_us(cl, expect=expect[label])
             passes[name][f"{label}_ms"] = None if busy is None else busy / 1e3
-            per = capture.get("per_call_us")
-            if label in ("dw", "library_dw") and per is not None:
-                for r, us in zip(rows[gi * n13:(gi + 1) * n13], per):
-                    r["device_ms" if label == "dw"
-                      else "library_device_ms"] = us / 1e3
+        # per shape: the kernel, cuDNN's weight gradient and an empty
+        # kernel (the floor of one launch) in one window
         grp = rows[gi * n13:(gi + 1) * n13]
+        cl = [c for x, g, w in part for c in (
+            (ops.depthwise_conv3x3_wgrad, (x, g)), (conv_wgrad, (x, g)))]
+        _, _, capture = device_us(cl + [(launch_floor, ())], expect={
+            "dw3x3_wgrad": n13, "launch_floor": 1})
+        per = capture.get("per_call_us")
+        if per is not None:
+            for i, r in enumerate(grp):
+                r["device_ms"] = per[2 * i] / 1e3
+                r["library_device_ms"] = per[2 * i + 1] / 1e3
+                r["floor_device_ms"] = per[-1] / 1e3
         passes[name]["dw_bound_ms"] = sum(r["bound_ms"] for r in grp)
         print(f"  T4 {name} device ms per pass of 13 depthwise steps: " +
               ", ".join(f"{k} {v:.4f}" if v is not None else f"{k} not "
@@ -1050,12 +1073,24 @@ def train_slice(dev, gen, report, dw_shapes):
             k: r.get(k) for k in ("ms", "plain_ms", "library_ms",
                                   "device_ms", "library_device_ms")},
             r["bound_ms"])
+        p = dwk.wgrad_plan(*r["shape"])
+        r["layout"] = {"blocks": p.blocks, "clusters": p.n_clusters,
+                       "cluster": p.cluster, "per_thread": p.per_thread,
+                       "clusters_held": dwk.wgrad_clusters_held(*r["shape"])}
         print(f"  time depthwise_conv3x3_wgrad {str(r['shape']):20s} kernel "
               f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f}  library "
               f"{r['library_ms']:.4f}  bound {r['bound_ms']:.5f}" + "".join(
                   f"  {k[:-10] or 'kernel'} device {1e3 * r[k]:.2f} us"
-                  for k in ("device_ms", "library_device_ms")
-                  if r.get(k) is not None))
+                  for k in ("device_ms", "library_device_ms",
+                            "floor_device_ms") if r.get(k) is not None)
+              + f"  ({p.blocks} blocks, {p.n_chunks} x {p.n_clusters} "
+              f"clusters of {p.cluster}, {p.per_thread} tiles a block; the "
+              f"card holds {r['layout']['clusters_held']} such clusters)")
+    timed = [r for r in rows if r.get("device_ms") is not None
+             and r.get("library_device_ms") is not None]
+    faster = sum(r["device_ms"] < r["library_device_ms"] for r in timed)
+    print(f"  T4 dw kernel faster than cuDNN's weight gradient (device "
+          f"time, one window): {faster} of {len(timed)} shapes measured")
     for name in passes:
         check_bound(f"dw pass {name}", {
             k: passes[name][k] for k in ("dw_ms", "plain_dw_ms",
@@ -1074,7 +1109,7 @@ def train_slice(dev, gen, report, dw_shapes):
                  for k, v in data[name][0][0].items()}
         fp, by_name = wall_profile(lambda: step(opt, batch, 0), reps=3,
                                    expect={"dw3x3_kernel": 26,
-                                           "dw3x3_wgrad": 26})
+                                           "dw3x3_wgrad": 13})
         times = runs[name][2]
         fp["step_wall_ms"] = 1e3 * statistics.median(times[1:])
         busy = fp["device_busy_ms"]

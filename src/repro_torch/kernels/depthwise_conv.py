@@ -9,9 +9,15 @@ It takes any B, H, W and C: there is no tiling contract and no fallback.
 Training (f32): ``DepthwiseConv3x3`` is the autograd ``Function`` around
 the kernel. Its input gradient is the same forward kernel run on the
 output gradient with the weights turned 180 degrees; its weight gradient
-is ``depthwise_conv3x3_wgrad``, a second kernel of the same source with a
-fixed summation order (no TPU counterpart: the reference lets XLA
-transpose ``lax.conv``). ``wgrad_plan`` picks its tile.
+is ``depthwise_conv3x3_wgrad``, a second kernel of the same source (no TPU
+counterpart: the reference lets XLA transpose ``lax.conv``). It is one
+launch a call: blocks stage tiles of x and g in shared memory, a
+thread-block cluster sums its blocks' partials through distributed shared
+memory, and where several clusters share a channel chunk a ticketed last
+block sums their rows, all in a fixed order with no float atomics, so two
+calls give the same bits. ``wgrad_plan`` picks its layout and the bound
+on its rounding (``WgradPlan.depth``); the tickets and rows live in a
+workspace kept per device and stream, so a call allocates nothing but dw.
 """
 from __future__ import annotations
 
@@ -134,47 +140,87 @@ depthwise_conv3x3.launches = 0
 
 # -- weight gradient --------------------------------------------------------
 
-WGRAD_BLOCKS = 4 * SMS     # one wave at the kernel's 4 blocks an SM
-WGRAD_MAX_TH = 8           # rows a unit, at most
-RED_Y = 16                 # dw3x3_wgrad_reduce's rows summed side by side
-                           # (kRedY in csrc/depthwise_conv.cu)
+WGRAD_FILL = SMS           # blocks wanted: one an SM, where the map has them
+WGRAD_BLOCKS = 2 * SMS     # at most one wave of two blocks an SM (two stages
+                           # of the largest tile take 77 KB of shared memory)
+WGRAD_MAX_TH = 8           # tile rows, at most
+WGRAD_MAX_TW = 16          # tile columns, at most (and MAX_THREADS // cg_blk)
+CLUSTER_ONE = 16           # a cluster that covers its chunk alone, at most
+                           # (non-portable above 8; blocks of one tile each)
+CLUSTER_MANY = 8           # a cluster among several of a chunk, or of blocks
+                           # that walk several tiles, at most (portable)
 
 
 class WgradPlan(NamedTuple):
-    """The weight-gradient kernel's tile for one (B, H, W, C): units of
-    ``th`` rows x 1 column x 4 channels (``n_units`` of them per channel
-    group), blocks of ``cg_blk`` channel groups x ``upb`` units, ``n_chunks``
-    blocks across the channel groups and ``nbx`` across the units; a thread
-    walks at most ``per_thread`` units. ``depth`` bounds the roundings any
-    one product goes through on its way into dw: the per-thread chain, the
-    block's sum over its ``upb`` slots and the second pass's two sums."""
+    """The weight-gradient kernel's layout for one (B, H, W, C): tiles of
+    ``th`` rows x ``tw`` columns of one image (``n_tiles`` a chunk:
+    ``n_strips`` x ``n_segs`` per image); ``n_chunks`` chunks of ``cg_blk``
+    channel groups (4 channels each); per chunk ``n_clusters`` clusters of
+    ``cluster`` blocks, block bx taking tiles bx, bx + nbx, ... (at most
+    ``per_thread``), with ``stages`` tiles staged at once. ``depth`` bounds
+    the roundings any one product goes through on its way into dw: the
+    thread's chain (per_thread x th), then the block's tw columns, the
+    cluster's ranks and the chunk's rows, each summed in order."""
     th: int
+    tw: int
     cg_blk: int
-    upb: int
     n_chunks: int
-    n_units: int
-    nbx: int
+    n_strips: int
+    n_segs: int
+    n_tiles: int
+    cluster: int
+    n_clusters: int
     per_thread: int
+    stages: int
     depth: int
+
+    @property
+    def nbx(self) -> int:
+        """Blocks a chunk."""
+        return self.cluster * self.n_clusters
+
+    @property
+    def blocks(self) -> int:
+        return self.nbx * self.n_chunks
+
+    @property
+    def threads(self) -> int:
+        return self.cg_blk * self.tw
 
 
 @functools.lru_cache(maxsize=1024)
 def wgrad_plan(B: int, H: int, W: int, C: int) -> WgradPlan:
-    """Channel groups and units a block as ``plan`` picks them; th the
-    largest power of two up to WGRAD_MAX_TH that is at most H; nbx the
-    blocks needed to give every unit a thread, capped so that all
-    ``nbx * n_chunks`` blocks make about one wave (WGRAD_BLOCKS): a larger
-    map gives each thread more units, not the second pass more rows."""
+    """Channel chunks as ``plan`` cuts them. Columns: the fewest equal
+    segments of at most WGRAD_MAX_TW (and MAX_THREADS // cg_blk). Rows:
+    the largest power of two up to WGRAD_MAX_TH that is at most H, halved
+    while the chunks' tiles give fewer than WGRAD_FILL blocks. Blocks: one
+    tile each where all tiles fit WGRAD_BLOCKS, else each the same number
+    of tiles, as few as keep the blocks within WGRAD_BLOCKS. Clusters: one
+    a chunk where its blocks, of one tile each, are at most CLUSTER_ONE;
+    else the fewest of at most CLUSTER_MANY, of equal size."""
     p = plan(B, H, W, C)
+    n_segs = -(-W // min(WGRAD_MAX_TW, MAX_THREADS // p.cg_blk))
+    tw = -(-W // n_segs)
     th = 1
     while th * 2 <= min(H, WGRAD_MAX_TH):
         th *= 2
-    n_units = B * -(-H // th) * W
-    nbx = max(1, min(-(-n_units // p.upb), -(-WGRAD_BLOCKS // p.n_chunks)))
-    per_thread = -(-n_units // (nbx * p.upb))
-    depth = per_thread * th + p.upb + -(-nbx // RED_Y) + RED_Y
-    return WgradPlan(th, p.cg_blk, p.upb, p.n_chunks, n_units, nbx,
-                     per_thread, depth)
+
+    def tiles(rows):
+        return B * -(-H // rows) * n_segs
+    while th > 1 and p.n_chunks * tiles(th) < WGRAD_FILL:
+        th //= 2
+    n_tiles = tiles(th)
+    per = -(-n_tiles // max(1, WGRAD_BLOCKS // p.n_chunks))
+    nbx = -(-n_tiles // per)
+    if per == 1 and nbx <= CLUSTER_ONE:
+        cluster, n_clusters = nbx, 1
+    else:
+        n_clusters = -(-nbx // CLUSTER_MANY)
+        cluster = -(-nbx // n_clusters)
+    per = -(-n_tiles // (cluster * n_clusters))
+    depth = per * th + tw - 1 + cluster - 1 + n_clusters - 1
+    return WgradPlan(th, tw, p.cg_blk, p.n_chunks, -(-H // th), n_segs,
+                     n_tiles, cluster, n_clusters, per, min(per, 2), depth)
 
 
 def check_wgrad_args(x: torch.Tensor, g: torch.Tensor
@@ -201,14 +247,32 @@ def check_wgrad_args(x: torch.Tensor, g: torch.Tensor
 @functools.lru_cache(maxsize=None)
 def _wgrad_launcher():
     fn = _build.library("depthwise_conv").depthwise_conv3x3_wgrad_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 4 + [
+        ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+# (device index, stream handle) -> (tickets, rows): the counters that pick
+# the block summing a share of a chunk's rows, zeroed once here and left at
+# zero by every launch, and the rows, written before they are read in each
+# launch. One pair per stream, so that launches on two streams never share
+# a counter (csrc/depthwise_conv.cu explains why none is left dirty).
+_WORKSPACE = {}
+
+
+def _workspace(device, stream: int, n_tickets: int, n_rows: int):
+    tickets, rows = _WORKSPACE.get((device.index, stream), (None, None))
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
+    if rows is None or rows.numel() < n_rows:
+        rows = torch.empty(n_rows, dtype=torch.float32, device=device)
+    _WORKSPACE[(device.index, stream)] = tickets, rows
+    return tickets, rows
+
+
 def depthwise_conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Launch the weight-gradient kernels on CUDA tensors x, g (B,H,W,C)
+    """Launch the weight-gradient kernel on CUDA tensors x, g (B,H,W,C)
     f32: dw (C,1,3,3) f32, the same bits on every run."""
     B, H, W, C = check_wgrad_args(x, g)
     if x.device.type != "cuda":
@@ -217,18 +281,21 @@ def depthwise_conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0:
         return dw.zero_()
     p = wgrad_plan(B, H, W, C)
-    if p.n_units + p.nbx * p.upb > 2 ** 31 - 1 or H * W * C > 2 ** 31 - 1 \
-            or p.n_chunks > 65535:
+    if p.n_tiles + p.nbx > 2 ** 31 - 1 or p.n_chunks > 65535:
         raise ValueError(f"depthwise_conv3x3_wgrad: {B}x{H}x{W}x{C} exceeds "
                          "the kernel's 32-bit indices or grid")
-    partial = torch.empty(p.nbx * p.n_chunks * p.cg_blk * 36,
-                          dtype=torch.float32, device=x.device)
-    vec = C % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, g))
+    vec = C % 4 == 0 and x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
     with torch.cuda.device(x.device):
-        code = _wgrad_launcher()(x.data_ptr(), g.data_ptr(),
-                                 partial.data_ptr(), dw.data_ptr(), B, H, W,
-                                 C, p.th, p.cg_blk, p.upb, p.n_chunks, p.nbx,
-                                 int(vec), _build.stream_ptr(x))
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        tickets = rows = 0
+        if p.n_clusters > 1:
+            t, r = _workspace(x.device, stream, p.n_chunks * p.cluster,
+                              p.n_chunks * p.n_clusters * p.cg_blk * 36)
+            tickets, rows = t.data_ptr(), r.data_ptr()
+        code = _wgrad_launcher()(x.data_ptr(), g.data_ptr(), dw.data_ptr(),
+                                 rows, tickets, B, H, W, C, p.th, p.tw,
+                                 p.cg_blk, p.n_chunks, p.cluster,
+                                 p.n_clusters, p.stages, int(vec), stream)
     _build.check_launch("depthwise_conv", code)
     depthwise_conv3x3_wgrad.launches += 1
     return dw
@@ -236,6 +303,21 @@ def depthwise_conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 depthwise_conv3x3_wgrad.launches = 0
 
+
+def wgrad_clusters_held(B: int, H: int, W: int, C: int) -> int:
+    """How many clusters of ``wgrad_plan``'s launch for (B, H, W, C) the
+    current card holds at once (cudaOccupancyMaxActiveClusters): the plan
+    makes one wave where its ``n_chunks * n_clusters`` are at most that."""
+    p = wgrad_plan(B, H, W, C)
+    fn = _build.library("depthwise_conv").depthwise_conv3x3_wgrad_max_clusters
+    fn.argtypes = [ctypes.c_int64] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    _build.check_launch("depthwise_conv", fn(
+        B, H, W, C, p.th, p.tw, p.cg_blk, p.n_chunks, p.cluster,
+        p.n_clusters, p.stages, int(C % 4 == 0), ctypes.byref(out)))
+    return out.value
 
 def rotated(w: torch.Tensor) -> torch.Tensor:
     """(C,1,3,3) weights turned 180 degrees: the forward on the output

@@ -419,6 +419,65 @@ def test_depthwise_wgrad_kernel_unaligned_view(cuda):
     assert bool(((got.double() - exact).abs() <= bound).all())
 
 
+def _wgrad_checked(x, dy):
+    """One kernel call, held to its rounding bound; returns dw."""
+    got = ops.depthwise_conv3x3_wgrad(x, dy)
+    exact, bound = _wgrad_bound(x, dy)
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    return got
+
+
+def _tickets_zero():
+    torch.cuda.synchronize()
+    return all(bool((t == 0).all())
+               for t, _ in depthwise_conv._WORKSPACE.values())
+
+
+@pytest.mark.parametrize("shape,clusters", [((8, 8, 8, 576), 1),
+                                            ((4, 192, 320, 32), 30)])
+def test_depthwise_wgrad_kernel_cluster_layouts(cuda, shape, clusters):
+    """A map that one cluster a chunk covers (no scratch, no ticket) and
+    one whose chunk spans 30 clusters (rows summed by the last to take a
+    ticket): the same bits twice, within the bound, tickets back at 0."""
+    assert depthwise_conv.wgrad_plan(*shape).n_clusters == clusters
+    g = _gen(sum(shape) + 1)
+    x = torch.randn(shape, generator=g).to(cuda)
+    dy = torch.randn(shape, generator=g).to(cuda)
+    first = _wgrad_checked(x, dy)
+    assert torch.equal(first, ops.depthwise_conv3x3_wgrad(x, dy))
+    assert _tickets_zero()
+
+
+def test_depthwise_wgrad_kernel_tickets_reset_across_calls_and_streams(
+        cuda):
+    """Back-to-back calls on one stream at shapes of 4, 1, 32 and 6
+    clusters a chunk, and the first call again, with no synchronization
+    between them, then the same calls on a second stream: every result
+    within its bound and equal in bits to the first stream's and to the
+    first call's, every ticket back at 0 (a ticket left dirty would make a
+    later launch sum its rows before they are written, or never)."""
+    shapes = [(8, 16, 16, 192), (8, 8, 8, 384), (8, 64, 64, 32),
+              (4, 96, 160, 144), (8, 16, 16, 192)]
+    assert [depthwise_conv.wgrad_plan(*s).n_clusters for s in shapes] == \
+        [4, 1, 32, 6, 4]
+    g = _gen(17)
+    inputs = [(torch.randn(s, generator=g).to(cuda),
+               torch.randn(s, generator=g).to(cuda)) for s in shapes[:-1]]
+    inputs.append(inputs[0])
+    main = [ops.depthwise_conv3x3_wgrad(x, dy) for x, dy in inputs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = [ops.depthwise_conv3x3_wgrad(x, dy) for x, dy in inputs]
+    torch.cuda.current_stream().wait_stream(side)
+    assert _tickets_zero()
+    for (x, dy), a, b in zip(inputs, main, other):
+        exact, bound = _wgrad_bound(x, dy)
+        assert bool(((a.double() - exact).abs() <= bound).all())
+        assert torch.equal(a, b)
+    assert torch.equal(main[0], main[-1])
+
+
 @pytest.mark.parametrize("shape", [(8, 16, 16, 192), (4, 24, 40, 384),
                                    (2, 5, 3, 30)])
 def test_depthwise_function_gradients_match_plain_autograd(cuda, shape):

@@ -1,7 +1,8 @@
 """The depthwise kernel's backward, on the CPU: the autograd ``Function``
 with its CUDA launches swapped for their plain versions, the plain weight
 gradient against ``jax`` differentiating the reference's convolution, the
-weight-gradient kernel's tile plan written out in numpy, the CUDA
+weight-gradient kernel's tile plan written out in numpy and its fixed
+summation order emulated in f32 against its rounding bound, the CUDA
 wrappers that must refuse autograd rather than drop the gradient, and the
 LM kernels that reach their autograd ``Function`` instead. The
 kernels themselves are held to their plain versions on the card in
@@ -229,49 +230,151 @@ def test_wgrad_checks_its_arguments():
         ops.depthwise_conv3x3_wgrad(x, x.transpose(1, 2))
 
 
-# -- the weight-gradient kernel's plan, written out -------------------------
+# -- the weight-gradient kernel's plan and order, written out ---------------
 
-def _assignment(B, H, W, C):
-    """Which (thread slot, block) sums each (unit, channel group): the
-    kernel's loop ``unit = bx * upb + slot + k * nbx * upb`` over every
-    block (bx, chunk) and slot, as a count per (unit, channel group)."""
-    p = dw.wgrad_plan(B, H, W, C)
-    cover = np.zeros((p.n_units, p.n_chunks * p.cg_blk), np.int64)
-    longest = 0
-    for bx in range(p.nbx):
-        for slot in range(p.upb):
-            units = np.arange(bx * p.upb + slot, p.n_units, p.nbx * p.upb)
-            longest = max(longest, len(units))
-            cover[units, :] += 1
-    return p, cover, longest
+def _tiles(p):
+    """(image, first row, first column) of each tile of a chunk, by tile
+    index, as the kernel's stage_tile unravels it."""
+    t = np.arange(p.n_tiles)
+    return (t // p.n_segs // p.n_strips, t // p.n_segs % p.n_strips * p.th,
+            t % p.n_segs * p.tw)
 
 
 @pytest.mark.parametrize("shape", TRAIN + EDGES)
 def test_wgrad_plan_covers_every_product_once(shape):
+    """Each (pixel of g, channel group) is summed exactly once: block bx of
+    a chunk takes tiles bx, bx + nbx, ..., thread slot s column w0 + s of
+    each, all of the tile's rows, and the chunks split the channel
+    groups. The layout fits the kernel's limits."""
     B, H, W, C = shape
-    p, cover, longest = _assignment(*shape)
-    assert (cover == 1).all()                  # each unit once per channel
-    assert p.n_chunks * p.cg_blk * 4 >= C      # every channel group
-    assert -(-H // p.th) * p.th >= H and p.th <= max(H, 1)
-    assert p.n_units == B * -(-H // p.th) * W
-    assert p.cg_blk * p.upb <= 128             # the kernel's launch bound
-    assert p.per_thread == longest
-    assert p.nbx <= -(-dw.WGRAD_BLOCKS // p.n_chunks)
-    assert p.n_chunks <= 65535
-    # the depth the tolerance uses: the thread's chain, the block's slots,
-    # the second pass's rows per thread and its RED_Y partial sums
-    assert p.depth == (longest * p.th + p.upb + -(-p.nbx // dw.RED_Y)
-                       + dw.RED_Y)
+    p = dw.wgrad_plan(*shape)
+    cover = np.zeros((B, p.n_strips * p.th, p.n_segs * p.tw), np.int64)
+    b_t, h_t, w_t = _tiles(p)
+    longest = 0
+    for bx in range(p.nbx):
+        mine = np.arange(bx, p.n_tiles, p.nbx)
+        longest = max(longest, len(mine))
+        for t in mine:
+            cover[b_t[t], h_t[t]:h_t[t] + p.th, w_t[t]:w_t[t] + p.tw] += 1
+    assert (cover == 1).all()                  # the map and its ragged edge
+    assert p.n_strips * p.th >= H and p.n_segs * p.tw >= W
+    assert p.n_chunks * p.cg_blk * 4 >= C > (p.n_chunks - 1) * p.cg_blk * 4
+    assert p.th <= max(H, 1) and p.th & (p.th - 1) == 0
+    assert p.threads <= dw.MAX_THREADS and p.n_chunks <= 65535
+    assert p.per_thread == longest and p.stages == min(longest, 2)
+    # clusters: one of at most CLUSTER_ONE blocks of one tile each covers
+    # its chunk, or several of at most CLUSTER_MANY (portable) share it
+    assert p.cluster <= dw.CLUSTER_ONE
+    if p.n_clusters > 1 or p.per_thread > 1:
+        assert p.cluster <= dw.CLUSTER_MANY
+    def lines(floats):                         # 128-byte lines, in floats
+        return -(-floats // 32) * 32
+    g_off = lines((p.th + 2) * (p.tw + 2) * p.cg_blk * 4)
+    smem = p.stages * lines(g_off + p.th * p.tw * p.cg_blk * 4) * 4
+    assert smem <= 200 * 1024                  # kWgradMaxSmem
+    # the depth the tolerance uses: the thread's chain, then the block's
+    # columns, the cluster's ranks and the rows, each summed in order
+    assert p.depth == (longest * p.th + p.tw - 1 + p.cluster - 1
+                       + p.n_clusters - 1)
 
 
 @pytest.mark.parametrize("shape", TRAIN)
 def test_wgrad_plan_fills_the_card_at_training_shapes(shape):
-    """About one wave of blocks wherever the map has the units for it, and
-    a rounding depth far below 2^24 (the bound stays meaningful)."""
+    """A block for every SM at every training shape (each has the tiles
+    for it), at most one wave of two blocks an SM, and a rounding depth far
+    below 2^24 (the bound stays meaningful)."""
     p = dw.wgrad_plan(*shape)
-    need = -(-p.n_units // p.upb) * p.n_chunks
-    assert p.nbx * p.n_chunks >= min(need, dw.WGRAD_BLOCKS // 2)
-    assert p.depth < 1000
+    assert dw.SMS <= p.blocks <= dw.WGRAD_BLOCKS
+    assert p.depth < 128
+
+
+def _fma32(a, b, c):
+    """fmaf: the f32 product is exact in f64, one rounding to f32."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _emulate(x, g, fault=None):
+    """The kernel's weight gradient in f32, summed in its fixed order
+    (wgrad_plan): each thread's chain of FMAs over its block's tiles and
+    their rows, then the block's column slots, the cluster's ranks and the
+    chunk's rows, each in order. Channels
+    never mix, so all C run side by side. ``fault`` wires one thing wrong:
+    "tap" writes tap (di, dj) to (dj, di), "row" drops the chunk's second
+    cluster row, "halo" reads x one column to the right."""
+    B, H, W, C = x.shape
+    p = dw.wgrad_plan(B, H, W, C)
+    hp, wp = p.n_strips * p.th, p.n_segs * p.tw
+    xp = np.zeros((B, hp + 2, wp + 3, C), np.float32)    # the zero halo
+    xp[:, 1:H + 1, 1:W + 1] = x
+    gp = np.zeros((B, hp, wp, C), np.float32)
+    gp[:, :H, :W] = g
+    shift = 1 if fault == "halo" else 0
+    b_t, h_t, w_t = _tiles(p)
+    acc = np.zeros((p.nbx, p.tw, 9, C), np.float32)
+    for k in range(p.per_thread):
+        t = np.arange(p.nbx) + k * p.nbx
+        live = (t < p.n_tiles)[:, None, None]
+        t = np.minimum(t, p.n_tiles - 1)
+        b, h0 = b_t[t][:, None], h_t[t][:, None]
+        w = w_t[t][:, None] + np.arange(p.tw)                  # (nbx, tw)
+        for i in range(p.th + 2):
+            row = [xp[b, h0 + i, w + dj + shift] for dj in range(3)]
+            for di in range(3):
+                if 0 <= i - di < p.th:
+                    gv = gp[b, h0 + i - di, w] * live
+                    for dj in range(3):
+                        acc[:, :, di * 3 + dj] = _fma32(
+                            row[dj], gv, acc[:, :, di * 3 + dj])
+    block = acc[:, 0]
+    for s in range(1, p.tw):
+        block = block + acc[:, s]
+    part = block.reshape(p.n_clusters, p.cluster, 9, C)
+    rows = part[:, 0]
+    for r in range(1, p.cluster):
+        rows = rows + part[:, r]
+    keep = [j for j in range(p.n_clusters) if not (fault == "row" and j == 1)]
+    out = rows[keep[0]]
+    for j in keep[1:]:
+        out = out + rows[j]
+    out = out.T.reshape(C, 1, 3, 3)
+    return out.transpose(0, 1, 3, 2) if fault == "tap" else out
+
+
+def _off_bound(shape, fault=None):
+    """The emulated kernel's largest distance from the f64 sum, as a share
+    of the rounding bound depth x 2^-24 x sum|x g| (per channel and
+    tap)."""
+    rng = np.random.default_rng(sum(shape))
+    x, g = (rng.standard_normal(shape, dtype=np.float32) for _ in range(2))
+    xd, gd = torch.from_numpy(x).double(), torch.from_numpy(g).double()
+    exact = ref.depthwise_conv3x3_wgrad(xd, gd).numpy()
+    mag = ref.depthwise_conv3x3_wgrad(xd.abs(), gd.abs()).numpy()
+    bound = dw.wgrad_plan(*shape).depth * 2.0 ** -24 * mag
+    off = np.abs(_emulate(x, g, fault) - exact)
+    # a tap with no products (outside a 1x1 map) must come out exactly 0
+    return float(np.where(bound > 0, off / np.where(bound > 0, bound, 1),
+                          np.where(off > 0, np.inf, 0)).max())
+
+
+@pytest.mark.parametrize("shape", TRAIN + EDGES)
+def test_wgrad_order_within_its_rounding_bound(shape):
+    """The kernel's summation order, emulated in f32, stays within
+    depth x 2^-24 x sum|x g| of the f64 sum: the bound the card's tests and
+    chip_smoke.py hold the kernel to."""
+    assert _off_bound(shape) <= 1.0
+
+
+WIRING_SHAPE = (8, 16, 16, 192)          # a chunk of 4 clusters
+
+
+@pytest.mark.parametrize("fault", ["tap", "row", "halo"])
+def test_wgrad_wiring_faults_exceed_the_bound(fault):
+    """A transposed tap, a dropped cluster row and a halo shifted by one
+    column each land at least 50x over the bound, which so tells a wiring
+    fault from rounding."""
+    assert dw.wgrad_plan(*WIRING_SHAPE).n_clusters > 1
+    assert _off_bound(WIRING_SHAPE) <= 1.0
+    assert _off_bound(WIRING_SHAPE, fault) >= 50.0
 
 
 def test_smoke_nets_have_depthwise_kernel_steps():
