@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with a card and nvcc. It
 builds the CUDA kernels from the checkout's sources into build/torch_kernels/
-(one nvcc per source, all at once) and drives the port's two paths, each
+(one nvcc per source, all at once) and drives the port's paths, each
 with the kernels' launch counts set to 0 just before it and read just after:
 
   * the XR path (slice 1): INT8 PTQ inference of full-width DetNet and
@@ -24,7 +24,17 @@ with the kernels' launch counts set to 0 just before it and read just after:
     through the forward kernel, the weight gradient through its own
     kernel), then resumed from step 10; its backward pieces are held to
     their plain versions at the 26 training shapes, one step to the same
-    step on the CPU, and the steps and the weight-gradient kernel timed.
+    step on the CPU, and the steps and the weight-gradient kernel timed;
+  * the dense and MoE decoders (slice 9, ``arch_slice``, S1-S5): the flash
+    kernels with sliding windows and logit softcaps against autograd of
+    their plain version at every configured (head dim, group) and S up to
+    8192, and at each attention layer kind of the main path at its
+    config's head counts; prefill (B=1, S=8192) and the server of
+    full-width deepseek-7b, yi-34b, gemma2-9b, mixtral-8x7b (8 layers) and
+    grok-1-314b (1 layer), the server's MoE dispatches held to the
+    reference's algorithm and its tokens to the teacher-forced forward; a
+    CPU twin, the ring cache decoded past its 4096-position window, and 5
+    training steps at S=8192 of gemma2-9b and mixtral-8x7b.
 
 Before each path every kernel of it is held against its plain PyTorch
 version at the path's shapes; after it each kernel is timed beside its plain
@@ -351,7 +361,7 @@ def lm_slice(dev, gen, report):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.configs import LM_ARCHS, get_config
+    from repro_torch.configs import get_config
     from repro_torch.data import synthetic
     from repro_torch.kernels import ops, ref
     from repro_torch.launch import serve
@@ -419,7 +429,7 @@ def lm_slice(dev, gen, report):
 
     # -- LM 2. the main path: prefill forwards and the server, counted -----
     models = {}
-    for i, arch in enumerate(LM_ARCHS):
+    for i, arch in enumerate(("llama3.2-1b", "mamba2-1.3b")):
         cfg = get_config(arch)
         t = time.perf_counter()
         params = lm.init_params(cfg, torch.Generator().manual_seed(SEED + i),
@@ -1375,7 +1385,8 @@ def lm_train_slice(dev, gen, report):
 
         # LT5: one step's wall, device busy, idle share and kernel shares
         names = [c for k in LT_KERNELS[arch] for c in LT_CNAMES[k]]
-        fp, by_name = wall_profile(lambda: step(opt, batch, 2), reps=2,
+        fp, by_name = wall_profile(lambda: step(opt, batch, S5_STEPS + 2),
+                                   reps=2,
                                    expect={c: n for c in names})
         fp["step_wall_ms"] = 1e3 * statistics.median(res.step_s[1:])
         fp["peak_gib"] = peak
@@ -1659,6 +1670,994 @@ def lm_train_slice(dev, gen, report):
     for k in ("segsum_ms", "segsum_device_ms"):
         entries[1][k] = times["ssd_chunk_scan_bwd"][k]
     return entries
+
+
+# -- slice 9: the dense and MoE decoders ----------------------------------
+# deepseek-7b, yi-34b, gemma2-9b, mixtral-8x7b, grok-1-314b at full width.
+# Depth is cut only where one card's 80 GB forces it: mixtral-8x7b (46.7 B
+# parameters, 93 GB in bf16) to 8 layers, grok-1-314b (6.5 B a layer with
+# its embedding) to 1. yi-34b (68.8 GB) runs at full depth and fails the run
+# if it does not fit. Weights are drawn on the card from a seeded card
+# generator.
+ARCHS9 = ("deepseek-7b", "gemma2-9b", "yi-34b", "mixtral-8x7b",
+          "grok-1-314b")
+ARCH_LAYERS = {"mixtral-8x7b": 8, "grok-1-314b": 1}
+ARCH_S = 8192                    # prefill and training: twice the window
+# S1: the flash kernels with windows and softcaps against autograd of the
+# plain version, (D, G, window, softcap): every (head dim, group) of the five
+# configs at 2 kv heads, each with its config's masks (gemma2 local and
+# global, mixtral's window, grok's cap) and the window-and-cap pair on
+# deepseek's and yi's shapes; S below, at and above the window, ragged, 2x.
+# Then every attention layer kind of the five on the main path (B=1, the
+# configs' own head counts, bf16; ``_main_attn``) at S=ARCH_S and at its
+# config's training S.
+S1_ATTN = ((128, 1, 4096, 30.0), (128, 4, 4096, 0.0), (128, 6, 0, 30.0),
+           (128, 7, 4096, 50.0), (256, 2, 4096, 50.0), (256, 2, 0, 50.0))
+S1_S, S1_K = (2048, 4096, 4097, 8192), 2
+HOLD_HEADS = 8                   # query heads a plain-version call holds
+# the kernels line's windowed entries: a gemma2 local layer and a mixtral
+# layer on the main path (B=1, S=ARCH_S)
+ARCH_ENTRIES = {"gemma2-9b": (16, 8, 256, 4096, 50.0),
+                "mixtral-8x7b": (32, 8, 128, 4096, 0.0)}
+# S2 holds each served token to the teacher-forced forward's argmax
+# wherever the forward's top-2 margin is at least S2_TIE[dtype] times
+# max(1, max|logit|) of the request, and at least S2_LEAST[moe] of the
+# served tokens must be checked so. The dense configs: the main path's own
+# bf16 server at full depth (in development calls its tokens parted from
+# the forward's argmax at margins of at most 0.031 x the scale). The MoE
+# configs: a second server on the same weights in f32, as bf16 noise moves
+# their router logits across far more than a near-tie (its logits sat
+# within 2.4e-3 x the scale of the forward's); a request's positions from
+# its first assignment that either run dropped (the batch's capacity drops
+# tokens by who shares the batch) or routed otherwise on are left out
+S2_TIE = {"bfloat16": 0.05, "float32": 5e-3}
+S2_LEAST = {False: 0.25, True: 0.1}
+# S3 (card vs CPU) and S4 (the ring) run the first repeat of S2's gemma2
+# and mixtral, in f32
+S3_S = (300,)                    # ragged for the flash tiles
+S4_LEN = 4096 + 128              # decoded positions: the ring wraps at 4096
+# S4 threshold, fixed in advance: the batch-1 decode's logits within
+# REF_GAP (f32) of the windowed forward's at every compared position, as
+# the one-repeat serving checks hold decode against prefill
+S4_GAP = 1e-2
+# MoE routes on two paths (card vs CPU, decode vs forward) may part only at
+# a near-tie: the k-th and (k+1)-th probabilities of the token within
+# ROUTE_TIE (relative); such tokens, and tokens a forward dropped at its
+# capacity, are left out of the logits comparison, at most ROUTE_LEAST
+ROUTE_TIE, ROUTE_LEAST = 1e-4, 0.01
+S4_LEAST = 0.5                   # positions S4 must compare, at least
+# S5 trains one repeat (a second does not fit: about 24 bytes a parameter
+# of weights, gradients, f32 AdamW moments and the update's copies) at
+# B=1, S=ARCH_S
+S5_ARCHS, S5_STEPS = ("gemma2-9b", "mixtral-8x7b"), 5
+# attention kernels of PyTorch that must not appear on the main path
+LIB_ATTN = ("fmha", "pytorch_flash", "efficient_attention", "flash::")
+
+
+def _visible_pairs(S, window):
+    """(q, k) pairs a causal, windowed attention computes: sum over rows of
+    min(q + 1, window) (window 0: the full triangle)."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def _flash_bounds(B, H, K, S, D, window):
+    """(forward, backward) bounds in ms: operations (4 and 10 B H D per
+    visible pair, the bf16 tensor cores) against bytes (q, k, v, o once;
+    the backward also dO, dq, dk, dv, lse), the larger of the two."""
+    pairs = B * H * _visible_pairs(S, window)
+    f_ops = 4 * D * pairs / BF16_OPS_PER_S * 1e3
+    b_ops = 10 * D * pairs / BF16_OPS_PER_S * 1e3
+    f_bytes = 2 * B * S * D * (2 * H + 2 * K) / HBM_BYTES_PER_S * 1e3
+    b_bytes = (2 * B * S * D * (4 * H + 4 * K) + 4 * B * H * S) \
+        / HBM_BYTES_PER_S * 1e3
+    return ({"bound_ms": max(f_ops, f_bytes), "ops_ms": f_ops,
+             "bytes_ms": f_bytes,
+             "bound_by": "operations" if f_ops >= f_bytes else "bytes"},
+            {"bound_ms": max(b_ops, b_bytes), "ops_ms": b_ops,
+             "bytes_ms": b_bytes,
+             "bound_by": "operations" if b_ops >= b_bytes else "bytes"})
+
+
+def _route_np(probs, topk):
+    """The reference's dispatch in numpy from a (T, E) f32 probability
+    array: stable descending order (the lower expert first on ties), the
+    token-major exclusive count of each expert's assignments."""
+    import numpy as np
+    eidx = np.argsort(-probs, axis=-1, kind="stable")[:, :topk]
+    flat = eidx.reshape(-1)
+    onehot = np.eye(probs.shape[1], dtype=np.int64)[flat]
+    pos = ((np.cumsum(onehot, axis=0) - onehot) * onehot).sum(-1)
+    return eidx, pos
+
+
+def _near_tie(probs, topk):
+    """Tokens two of whose top topk+1 probabilities, next in order, are
+    within ROUTE_TIE of the larger (relative): a route, or the order of its
+    experts, that may part between two paths."""
+    return _route_gap(probs, topk) <= ROUTE_TIE
+
+
+def _route_gap(probs, topk):
+    """The least relative gap between probabilities next in order among
+    each token's top topk+1 (T, E) -> (T,)."""
+    import numpy as np
+    p = np.sort(probs, axis=-1)[:, ::-1][:, :topk + 1]
+    return ((p[:, :-1] - p[:, 1:]) / p[:, :-1]).min(-1)
+
+
+def _flex(window, cap, S, dev):
+    """flex_attention with a tanh softcap score_mod and a causal window
+    block mask, compiled: one PyTorch call computing the windowed,
+    softcapped kernel's function (timed beside it, never called by the
+    port)."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        ok = kv_idx <= q_idx
+        return ok & (kv_idx > q_idx - window) if window else ok
+    import torch._dynamo
+    # one static compile per shape and score_mod: past the default limit of
+    # 8, dynamo would run flex_attention eagerly (its math path), and a
+    # recompile with dynamic shapes fails to lower ("unbacked_bindings")
+    torch._dynamo.config.cache_size_limit = 64
+    bm = create_block_mask(mask_mod, None, None, S, S, device=dev)
+    cf = torch.compile(flex_attention, dynamic=False)
+
+    def fn(q, k, v):
+        return cf(q, k, v, score_mod=score_mod, block_mask=bm,
+                  enable_gqa=True)
+    return fn
+
+
+def _routed(fn, *args, **kw):
+    """fn(*args) with every MoE dispatch's probabilities (T, E), experts
+    (T, topk), slots (T*topk,) and capacity recorded, in call order."""
+    from repro_torch.models import layers as L
+    rec, route = [], L.moe_route
+
+    def rfn(c, logits):
+        out = route(c, logits)
+        rec.append((out[0].double().cpu().numpy(), out[2].cpu().numpy(),
+                    out[3].cpu().numpy(), out[4]))
+        return out
+    L.moe_route = rfn
+    try:
+        return fn(*args, **kw), rec
+    finally:
+        L.moe_route = route
+
+
+def _widen(tree):
+    """Every tensor of a nested dict to f32, in place, one at a time."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _widen(v)
+        else:
+            tree[k] = v.float()
+
+
+def _serve_recorded(cfg, params, dev):
+    """``serve.serve`` of the main path's requests (SERVE_REQUESTS, batch
+    SERVE_BATCH) with each engine step recorded: its slots' request uids
+    and positions, its logits and its MoE dispatches. Returns (finished
+    requests, seconds, steps, every dispatch)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    steps, refill, decode = [], ServeEngine._refill, lm.decode_step
+
+    def rrefill(self):
+        refill(self)
+        steps.append({"uids": [s and s.req.uid for s in self.slots],
+                      "pos": [s and s.pos for s in self.slots]})
+
+    def rdecode(*args, **kw):
+        logits, cache = decode(*args, **kw)
+        steps[-1]["logits"] = logits
+        return logits, cache
+    ServeEngine._refill, lm.decode_step = rrefill, rdecode
+    try:
+        (done, secs), routes = _routed(
+            serve.serve, cfg, params, serve.make_requests(
+                cfg, SERVE_REQUESTS, SERVE_NEW, seed=SEED),
+            batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ, device=dev)
+    finally:
+        ServeEngine._refill, lm.decode_step = refill, decode
+    steps = [st for st in steps if "logits" in st]
+    n = len(routes) // len(steps)           # MoE layers a step
+    for j, st in enumerate(steps):
+        st["routes"] = routes[j * n:(j + 1) * n]
+    return done, secs, steps, routes
+
+
+def _served_vs_forward(cfg, params, done, steps, dev, what):
+    """Hold a recorded server run (``_serve_recorded``) to the
+    teacher-forced forward over each request's prompt and served tokens:
+    each served token must be the forward's argmax wherever the forward's
+    top-2 margin is at least S2_TIE[dtype] x max(1, max|logit|) of its
+    request, and at least S2_LEAST of the served tokens must be checked so.
+    With MoE, a request's positions from the first assignment that either
+    run dropped at its capacity (the server's is the batch's, so who shares
+    the batch decides), or that the two routed otherwise (allowed only at a
+    near-tie, ``_near_tie``), on are left out. Returns the counts, the
+    largest gap between the two runs' logits (relative to the scale) and
+    each compared token's margin, agreement and gap."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    at = {}        # (uid, position) -> (logits row, its dispatch per layer)
+    for st in steps:
+        for i, (uid, pos) in enumerate(zip(st["uids"], st["pos"])):
+            if uid is not None:
+                at[uid, pos] = (st["logits"][i], [
+                    (e[i], sl.reshape(len(e), -1)[i], C)
+                    for _, e, sl, C in st["routes"]])
+    out = {"tokens": 0, "compared": 0, "checked": 0, "max_gap_rel": 0.0,
+           "left_out_dropped": 0, "left_out_parted": 0, "parted_ties": [],
+           "compared_tokens": []}
+    tie = S2_TIE[cfg.dtype]
+    for r in done:
+        seq = np.concatenate([r.prompt, np.asarray(r.out_tokens[:-1],
+                                                   np.int32)])
+        first = len(r.prompt) - 1
+        with torch.no_grad():
+            (rows, _), frt = _routed(lm.forward, cfg, params,
+                                     torch.from_numpy(seq)[None].to(dev))
+        rows = rows[0]
+        end, why = len(seq), None          # positions [first, end) compared
+        for p in range(len(seq)):
+            srv = at[r.uid, p][1]
+            if any((sl >= C).any() for _, sl, C in srv) or any(
+                    (fs.reshape(len(seq), -1)[p] >= C).any()
+                    for _, _, fs, C in frt):
+                end, why = p, "dropped"
+                break
+            parted = [j for j, ((es, _, _), (_, fe, _, _)) in enumerate(
+                zip(srv, frt)) if not np.array_equal(es, fe[p])]
+            if parted:                     # the first layer: the others follow
+                probs = frt[parted[0]][0][p:p + 1]
+                out["parted_ties"].append(float(_route_gap(
+                    probs, cfg.experts_per_token)[0]))
+                check(bool(_near_tie(probs, cfg.experts_per_token)[0]),
+                      f"{what} request {r.uid} position {p} layer "
+                      f"{parted[0]}: the server routes otherwise than the "
+                      "forward away from a near-tie")
+                end, why = p, "parted"
+                break
+        n_out = len(r.out_tokens)
+        out["tokens"] += n_out
+        n_cmp = max(0, end - first)
+        if why:
+            out[f"left_out_{why}"] += n_out - n_cmp
+        if not n_cmp:
+            continue
+        fw = rows[first:end].float()
+        sv = torch.stack([at[r.uid, p][0] for p in range(first, end)]).float()
+        scale = max(1.0, float(fw.abs().max()))
+        gaps = ((sv - fw).abs().amax(-1) / scale).cpu()
+        top2 = torch.topk(fw, 2, dim=-1)
+        margin = ((top2.values[:, 0] - top2.values[:, 1]) / scale).cpu()
+        argmax = top2.indices[:, 0].cpu()
+        for j in range(n_cmp):
+            same = int(argmax[j]) == r.out_tokens[j]
+            out["compared_tokens"].append((r.uid, j, float(margin[j]), same,
+                                           float(gaps[j])))
+            if float(margin[j]) >= tie:
+                check(same, f"{what} request {r.uid} token {j}: served "
+                      f"{r.out_tokens[j]}, the forward's argmax "
+                      f"{int(argmax[j])} at a margin of {float(margin[j])} "
+                      f"x {scale} (near-tie threshold {tie} x it)")
+                out["checked"] += 1
+        out["max_gap_rel"] = max(out["max_gap_rel"], float(gaps.max()))
+        out["compared"] += n_cmp
+    least = S2_LEAST[bool(cfg.num_experts)]
+    check(out["checked"] >= least * out["tokens"], f"{what}: only "
+          f"{out['checked']} of {out['tokens']} served tokens checked "
+          f"against the forward (margins under {tie} x the scale)")
+    return out
+
+
+def arch_slice(dev, gen, report):
+    """Slice 9 (S1-S5): the dense and MoE decoders at full width -- the
+    windowed and softcapped flash kernels against autograd of the plain
+    version (S1), prefill and the server of all five configs (S2), a CPU
+    twin (S3), the ring cache past the window (S4) and training (S5) of
+    gemma2-9b and mixtral-8x7b. Returns the kernels-line entries of the
+    windowed flash forward and backward at gemma2's and mixtral's
+    shapes."""
+    import dataclasses
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models.params import flatten
+    from repro_torch.train import loop
+
+    def max_err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    def ms(busy):
+        return None if busy is None else busy / 1e3
+
+    def qkvo(B, H, K, S, D, dt):
+        return tuple(torch.randn(B, S, h, D, generator=gen).to(dev, dt)
+                     .transpose(1, 2) for h in (H, K, K, H))
+
+    def masked_sdpa(window, S):
+        mask = ref.visible(S, True, window, dev)
+
+        def fn(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        return fn
+
+    def bwd_graph(fn, q, k, v, do):
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        y = fn(qs, ks, vs)
+        return lambda: torch.autograd.grad(y, (qs, ks, vs), do,
+                                           retain_graph=True)
+
+    def library(window, cap, q, k, v, do=None):
+        """(fn, note): the one PyTorch call that computes the kernel's
+        function on q, k, v -- SDPA with a boolean window mask without a
+        softcap, compiled flex_attention (``_flex``) with one -- tried once
+        (its backward too, given ``do``), or (None, the reason) where it
+        does not compile."""
+        if not cap:
+            return masked_sdpa(window, q.shape[2]), (
+                "F.scaled_dot_product_attention, boolean window mask")
+        try:
+            fn = _flex(window, cap, q.shape[2], dev)
+            if do is None:
+                fn(q, k, v)
+            else:
+                bwd_graph(fn, q, k, v, do)()
+            torch.cuda.synchronize()
+        except Exception as e:      # the yardstick only: the port never calls it
+            return None, f"none: flex_attention did not compile ({e!r:.200})"
+        return fn, ("torch.nn.attention.flex_attention, compiled, tanh "
+                    "score_mod and window block mask")
+
+    def hold(q, k, v, do, window, cap, what):
+        """The kernels' forward (with and without the log-sum-exp) and
+        backward (twice: the same bits) on q, k, v, do against autograd of
+        the plain version, every element within its bound (``ref.
+        flash_limit``, ``flash_bf16_limit`` for bf16; ``flash_bwd_limit``).
+        The plain version takes HOLD_HEADS query heads at a time (heads are
+        independent), so that its S x S scores fit beside the full-size
+        call. Returns o, lse and the errors and margins."""
+        o, lse = fak.flash_attention(q, k, v, True, with_lse=True,
+                                     window=window, softcap=cap)
+        o2 = ops.flash_attention(q, k, v, True, window, cap)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, True, window, cap)
+        again = ops.flash_attention_bwd(q, k, v, o, lse, do, True, window,
+                                        cap)
+        check(torch.equal(o, o2), f"{what}: the forward with and without "
+              "the log-sum-exp differ")
+        for name, g, a in zip("qkv", got, again):
+            check(torch.equal(g, a), f"{what}: d{name} differs in bits "
+                  "between two calls")
+        del o2, again
+        bf16 = q.dtype == torch.bfloat16
+        G = q.shape[1] // k.shape[1]
+        n = max(1, HOLD_HEADS // G)             # kv heads a plain call
+        res = {"fwd_max_abs_err": 0.0, "bwd_max_abs_err": 0.0,
+               "lse_max_abs_err": 0.0, "fwd_over": -math.inf,
+               "bwd_over": [-math.inf] * 3}
+        for j in range(0, k.shape[1], n):
+            hq, hk = slice(j * G, (j + n) * G), slice(j, j + n)
+            qs, ks, vs, dos = q[:, hq], k[:, hk], v[:, hk], do[:, hq]
+            qf, kf, vf = (t.detach().float().requires_grad_()
+                          for t in (qs, ks, vs))
+            want = ref.flash_attention(qf, kf, vf, True, window, cap)
+            want.backward(dos.float())
+            want = want.detach()
+            lim = (ref.flash_bf16_limit if bf16 else ref.flash_limit)(
+                want, qs, ks, vs, True, FLASH_TOL, window, cap)
+            res["fwd_over"] = max(res["fwd_over"], float(
+                ((o[:, hq].float() - want).abs() - lim).max()))
+            res["fwd_max_abs_err"] = max(res["fwd_max_abs_err"],
+                                         max_err(o[:, hq], want))
+            del want, lim
+            res["lse_max_abs_err"] = max(res["lse_max_abs_err"], max_err(
+                lse[:, hq], ref.flash_attention_lse(qs.float(), ks.float(),
+                                                    True, window, cap)))
+            wg = (qf.grad, kf.grad, vf.grad)
+            lims = ref.flash_bwd_limit(wg, qs, ks, vs, o[:, hq], lse[:, hq],
+                                       dos, True, FLASH_TOL, bf16, window,
+                                       cap)
+            for i, (g, w, lm_) in enumerate(zip(
+                    (got[0][:, hq], got[1][:, hk], got[2][:, hk]), wg, lims)):
+                res["bwd_over"][i] = max(res["bwd_over"][i], float(
+                    ((g.float() - w).abs() - lm_).max()))
+                res["bwd_max_abs_err"] = max(res["bwd_max_abs_err"],
+                                             max_err(g, w))
+            del qf, kf, vf, wg, lims
+        check(res["fwd_over"] <= 0, f"{what}: a forward element is "
+              f"{res['fwd_over']} over its bound")
+        check(res["lse_max_abs_err"] <= FLASH_TOL * (
+            1 + float(lse.abs().max())), f"{what}: log-sum-exp off by "
+            f"{res['lse_max_abs_err']}")
+        for name, x in zip("qkv", res["bwd_over"]):
+            check(x <= 0, f"{what}: a d{name} element is {x} over its bound")
+        return o, lse, res
+
+    def held(res):
+        return (f"forward max abs err {res['fwd_max_abs_err']:.3g} (margin "
+                f"{res['fwd_over']:.3g} to its bound), backward "
+                f"{res['bwd_max_abs_err']:.3g} (margins " + ", ".join(
+                    f"{x:.3g}" for x in res["bwd_over"]) + ")")
+
+    # full-width models of 12-69 GB and S=8192 training: segments that grow
+    # in place, so that the earlier slices' cached blocks do not fragment
+    # the card (gemma2's step ran out of memory with 23 GiB reserved and
+    # unused)
+    gc.collect()                  # the earlier slices' cycles hold tensors
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    print(f"slice 9 starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+          f" GiB allocated, {torch.cuda.memory_reserved() / 2 ** 30:.2f} "
+          f"reserved, {torch.cuda.mem_get_info()[0] / 2 ** 30:.2f} free")
+    t_s = time.perf_counter()
+    # -- S1. the kernels against autograd of their plain version -----------
+    s1, s1_lib = [], []
+    for D, G, window, cap in S1_ATTN:
+        H, K = G * S1_K, S1_K
+        for S in S1_S:
+            for dt in (torch.bfloat16, torch.float32):
+                q, k, v, do = qkvo(1, H, K, S, D, dt)
+                what = (f"D={D} H={H} K={K} S={S} window={window} softcap="
+                        f"{cap} {str(dt)[6:]}")
+                o, lse, res = hold(q, k, v, do, window, cap, f"S1 flash {what}")
+                row = {"D": D, "H": H, "K": K, "S": S, "window": window,
+                       "softcap": cap, "dtype": str(dt)[6:], **res}
+                bf16 = dt == torch.bfloat16
+                if bf16:           # device time of both, one window
+                    fcall = (lambda a, b, c, w=window, s=cap:
+                             fak.flash_attention(a, b, c, True, window=w,
+                                                 softcap=s))
+                    bcall = (lambda *a, w=window, s=cap:
+                             fak.flash_attention_bwd(*a, True, w, s))
+                    busy, _, cap_ = device_us(
+                        [(fcall, (q, k, v)), (bcall, (q, k, v, o, lse, do))],
+                        reps=2, expect={"flash_tc_kernel": 1,
+                                        "flash_bwd_dkdv_tc": 1,
+                                        "flash_bwd_dq_tc": 1,
+                                        "flash_bwd_delta_tc": 1})
+                    per = cap_.get("per_call_us") if busy is not None else None
+                    fb, bb = _flash_bounds(1, H, K, S, D, window)
+                    row.update(fwd_device_ms=None if per is None
+                               else per[0] / 1e3,
+                               bwd_device_ms=None if per is None
+                               else per[1] / 1e3,
+                               fwd_bound_ms=fb["bound_ms"],
+                               bwd_bound_ms=bb["bound_ms"])
+                    row["library"] = (f"timed at S={S1_S[-1]} only (a "
+                                      "flex_attention compile per shape)")
+                    if S == S1_S[-1]:   # after the kernels line's calls
+                        s1_lib.append((row, what, D, H, K, window, cap))
+                    check_bound(f"S1 flash {what}", {
+                        "fwd": row["fwd_device_ms"]}, fb["bound_ms"])
+                    check_bound(f"S1 flash_bwd {what}", {
+                        "bwd": row["bwd_device_ms"]}, bb["bound_ms"])
+                s1.append(row)
+                print(f"  S1 flash {what}: {held(res)}" + (
+                    "" if not bf16 else
+                    "; device fwd " + (
+                        "not measured" if row["fwd_device_ms"] is None
+                        else f"{row['fwd_device_ms']:.4f} ms")
+                    + f" (bound {row['fwd_bound_ms']:.4f}), bwd " + (
+                        "not measured" if row["bwd_device_ms"] is None
+                        else f"{row['bwd_device_ms']:.4f} ms")
+                    + f" (bound {row['bwd_bound_ms']:.4f})"))
+                del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    report["s1_flash"] = s1
+    print(f"S1 windowed/softcapped flash vs autograd of the plain version: "
+          f"{len(s1)} cases, forward, log-sum-exp and dq/dk/dv within their "
+          f"bounds (tanh term {2.0 ** -21:.3g} x cap), the same bits twice; "
+          f"{time.perf_counter() - t_s:.1f} s")
+
+    # every attention layer kind of the main path (prefill and training),
+    # at the configs' own head counts, B=1, S=ARCH_S, bf16
+    main = {}
+    for arch in ARCHS9:
+        cfg = get_config(arch)
+        kinds = {(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                  L.window_of(cfg, cfg.is_local_layer(j)),
+                  cfg.attn_logit_softcap)
+                 for j in range(cfg.num_layers) if cfg.is_attn_layer(j)}
+        for H, K, D, window, cap in sorted(kinds):
+            what = (f"{arch} B=1 S={ARCH_S} H={H} K={K} D={D} window "
+                    f"{window} softcap {cap} bf16")
+            q, k, v, do = qkvo(1, H, K, ARCH_S, D, torch.bfloat16)
+            _, _, res = hold(q, k, v, do, window, cap, f"S1 main path {what}")
+            main[H, K, D, window, cap] = res
+            print(f"  S1 main path {what}: {held(res)}")
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    report["s1_main_path"] = [dict(zip(("H", "K", "D", "window", "softcap"),
+                                       key), S=ARCH_S, **res)
+                              for key, res in main.items()]
+    print(f"S1 main-path shapes: {len(main)} kinds within their bounds")
+
+    # kernels-line entries at the main path's shapes, with the library call
+    entries, lib_note = {}, {}
+    for arch, (H, K, D, window, cap) in ARCH_ENTRIES.items():
+        q, k, v, do = qkvo(1, H, K, ARCH_S, D, torch.bfloat16)
+        o, lse = fak.flash_attention(q, k, v, True, with_lse=True,
+                                     window=window, softcap=cap)
+        res = main[H, K, D, window, cap]
+        lib, note = library(window, cap, q, k, v, do)
+        lib_note[arch] = note
+        fb, bb = _flash_bounds(1, H, K, ARCH_S, D, window)
+        fwd = (lambda a, b, c, w=window, s=cap:
+               ops.flash_attention(a, b, c, True, w, s))
+        bwd = (lambda *a, w=window, s=cap:
+               ops.flash_attention_bwd(*a, True, w, s))
+        plain = (lambda a, b, c, w=window, s=cap:
+                 ref.flash_attention(a, b, c, True, w, s))
+        plain_b = (lambda *a, w=window, s=cap:
+                   ref.flash_attention_bwd(*a, True, w, s))
+        tf = {"ms": median_ms(fwd, q, k, v),
+              "plain_ms": median_ms(plain, q, k, v, reps=3, inner=3),
+              "device_ms": ms(device_us([(fwd, (q, k, v))], reps=3,
+                                        expect={"flash_tc_kernel": 1})[0]),
+              "max_abs_err": res["fwd_max_abs_err"], **fb}
+        args = (q, k, v, o, lse, do)
+        tb = {"ms": median_ms(bwd, *args, inner=10),
+              "plain_ms": median_ms(plain_b, *args, reps=3, inner=2),
+              "device_ms": ms(device_us([(bwd, args)], reps=3, expect={
+                  c: 1 for c in LT_CNAMES["flash_attention_bwd"]})[0]),
+              "max_abs_err": res["bwd_max_abs_err"], **bb}
+        if lib is not None:
+            check(max_err(lib(q, k, v), o) <= 5e-2 * max(
+                1.0, float(o.float().abs().max())),
+                  f"{arch}: the library call disagrees with the kernel")
+            lbwd = bwd_graph(lib, q, k, v, do)
+            tf["library_ms"] = median_ms(lib, q, k, v)
+            tf["library_device_ms"] = ms(device_us([(lib, (q, k, v))],
+                                                   reps=3)[0])
+            tb["library_ms"] = median_ms(lbwd, inner=10)
+            tb["library_device_ms"] = ms(device_us([(lbwd, ())], reps=3)[0])
+            del lbwd
+        else:
+            tf["library_ms"] = tb["library_ms"] = None
+            tf["library_device_ms"] = tb["library_device_ms"] = None
+        for name, t in (("flash_attention", tf), ("flash_attention_bwd",
+                                                  tb)):
+            check_bound(f"{name}[{arch}]", {
+                kk: vv for kk, vv in t.items() if kk.endswith("ms") and kk
+                not in ("bound_ms", "ops_ms", "bytes_ms")}, t["bound_ms"])
+            entries[f"{name}[{arch}]"] = t
+            print(f"  time {name} [{arch}] B=1 S={ARCH_S} H={H} K={K} D={D} "
+                  f"window {window} softcap {cap} bf16: " + ", ".join(
+                      f"{kk} {vv:.5g}" if isinstance(vv, float)
+                      else f"{kk} {vv}" for kk, vv in t.items())
+                  + f"; library: {note}")
+        del q, k, v, do, o, lse, lib
+        torch.cuda.empty_cache()
+    # the library call at S1's longest shapes, after the kernels line's
+    # (a failed flex compile can break the next ones in the process); with
+    # a softcap its forward only (a flex backward compile per shape)
+    for row, what, D, H, K, window, cap in s1_lib:
+        q, k, v, do = qkvo(1, H, K, S1_S[-1], D, torch.bfloat16)
+        fn, note = library(window, cap, q, k, v)
+        row["library"] = note + (" (forward only)" if cap else "")
+        if fn is not None:
+            row["library_fwd_device_ms"] = ms(device_us([(fn, (q, k, v))],
+                                                        reps=2)[0])
+        if fn is not None and not cap:
+            row["library_bwd_device_ms"] = ms(device_us(
+                [(bwd_graph(fn, q, k, v, do), ())], reps=2)[0])
+        fb, bb = _flash_bounds(1, H, K, S1_S[-1], D, window)
+        check_bound(f"S1 library {what}", {
+            "fwd": row.get("library_fwd_device_ms")}, fb["bound_ms"])
+        check_bound(f"S1 library bwd {what}", {
+            "bwd": row.get("library_bwd_device_ms")}, bb["bound_ms"])
+        print(f"  S1 library {what}: " + ", ".join(
+            f"{d} {row[f'library_{d}_device_ms']:.4f} ms"
+            for d in ("fwd", "bwd")
+            if row.get(f"library_{d}_device_ms") is not None)
+            + f" ({row['library']})")
+        del q, k, v, do
+    report["arch_flash_times"] = entries
+    report["arch_flash_library"] = lib_note
+    print(f"S1 done in {time.perf_counter() - t_s:.1f} s")
+
+    # -- S2. prefill and the server at full width, counted -------------------
+    t_s = time.perf_counter()
+    first, s2, served_launch = {}, {}, {}
+    for i, arch in enumerate(ARCHS9):
+        base = get_config(arch)
+        cfg = base
+        if arch in ARCH_LAYERS:
+            cfg = dataclasses.replace(base, num_layers=ARCH_LAYERS[arch])
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        params = lm.init_params(cfg, torch.Generator(dev).manual_seed(
+            SEED + 70 + i), dev)
+        torch.cuda.synchronize()
+        n_par = sum(p.numel() for p in _leaves(params))
+        cut = ("" if cfg.num_layers == base.num_layers else
+               f" (cut from {base.num_layers}: one card's 80 GB)")
+        print(f"{arch}: {n_par} parameters, {cfg.num_layers} layers{cut}, "
+              f"d_model {cfg.d_model}, drawn on the card in "
+              f"{time.perf_counter() - t:.1f} s")
+        tok = torch.from_numpy(next(synthetic.token_batches(
+            1, ARCH_S, cfg.vocab_size, seed=0))[0]["tokens"]).to(dev)
+        n_attn = sum(cfg.is_attn_layer(j) for j in range(cfg.num_layers))
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t_main = time.perf_counter()
+        with torch.no_grad():
+            logits, aux = lm.forward(cfg, params, tok)
+            done, secs, steps, routes = _serve_recorded(cfg, params, dev)
+        torch.cuda.synchronize()
+        t_main = time.perf_counter() - t_main
+        launches = ops.launches()
+        served_launch[arch] = launches
+        check(launches == {**{k_: 0 for k_ in launches},
+                           "flash_attention": n_attn},
+              f"S2 {arch}: launches {launches}, not {n_attn} flash_attention "
+              "(one per attention layer of the prefill; decode runs none)")
+        check(tuple(logits.shape) == (1, ARCH_S, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"S2 {arch}: logits {tuple(logits.shape)} not finite")
+        check(bool(torch.isfinite(aux)) and (float(aux) > 0) == bool(
+            cfg.num_experts), f"S2 {arch}: aux loss {float(aux)}")
+        if cfg.final_logit_softcap:
+            check(float(logits.abs().max()) <= cfg.final_logit_softcap,
+                  f"S2 {arch}: logits past the final softcap")
+        del logits
+        toks = sum(len(r.out_tokens) for r in done)
+        check(len(done) == SERVE_REQUESTS and toks == SERVE_REQUESTS
+              * SERVE_NEW and all(0 <= x < cfg.vocab_size for r in done
+                                  for x in r.out_tokens),
+              f"S2 {arch} server: {len(done)} requests, {toks} tokens")
+        row = {"layers": cfg.num_layers, "full_layers": base.num_layers,
+               "parameters": n_par, "main_path_s": t_main,
+               "serve": {"tokens": toks, "seconds": secs,
+                         "tokens_per_s": toks / secs}}
+        if cfg.num_experts:
+            # the server's batched dispatches against the reference's
+            # algorithm in numpy, assignment for assignment
+            n_assign = n_drop = 0
+            for probs, eidx, pos, C in routes:
+                T = probs.shape[0]
+                we, wp = _route_np(probs, cfg.experts_per_token)
+                check(np.array_equal(eidx, we) and np.array_equal(pos, wp)
+                      and C == L.moe_capacity(cfg, T),
+                      f"S2 {arch} server: a dispatch of {T} tokens differs "
+                      "from the reference's order and slots")
+                n_assign += pos.size
+                n_drop += int((pos >= C).sum())
+            check(len(routes) > 0, f"S2 {arch}: no MoE dispatch recorded")
+            row["server_dispatches"] = {"calls": len(routes),
+                                        "assignments": n_assign,
+                                        "dropped": n_drop}
+            print(f"  S2 {arch} server: {len(routes)} MoE dispatches, "
+                  f"{n_assign} assignments, {n_drop} dropped at the batch's "
+                  "capacity, each equal to the reference's dispatch in "
+                  "numpy, index for index")
+        # one profiled prefill: the flash kernel once per attention layer,
+        # no PyTorch attention
+        fp, by_name = wall_profile(
+            lambda c=cfg, p=params, t_=tok: lm.forward(c, p, t_), reps=2,
+            expect={"flash_tc_kernel": n_attn})
+        lib = [n_ for n_ in by_name if any(x in n_ for x in LIB_ATTN)]
+        check(not lib, f"S2 {arch}: PyTorch attention kernels in the "
+              f"prefill: {lib}")
+        busy = fp["device_busy_ms"]
+        if by_name:
+            us = sum(v_ for n_, v_ in by_name.items()
+                     if "flash_tc_kernel" in n_)
+            fp["flash_us_per_launch"] = us / n_attn
+            fp["flash_share"] = us / 1e3 / busy
+        row["prefill"] = fp
+        s2[arch] = row
+        print(f"  S2 {arch} prefill B=1 S={ARCH_S}: wall {fp['wall_ms']:.3f}"
+              " ms, device busy " + ("not measured" if busy is None else
+                                     f"{busy:.3f} ms, idle share "
+                                     f"{fp['idle_share']:.3f}, flash "
+                                     f"{n_attn} launches, "
+                                     f"{fp['flash_us_per_launch']:.1f} us "
+                                     f"each, {100 * fp['flash_share']:.1f}% "
+                                     "of the device time")
+              + f"; server {toks} tokens in {secs:.2f} s "
+              f"({toks / secs:.1f} tok/s, batch {SERVE_BATCH}, bf16)")
+        for kname, us_ in fp["top_kernels_us"]:
+            print(f"    {us_:9.1f} us  {kname[:90]}")
+        if arch in S5_ARCHS:       # its first repeat, for S3 and S4
+            R1 = lm.block_period(cfg)
+            first[arch] = (dataclasses.replace(
+                cfg, num_layers=R1, dtype="float32"), {
+                    k_: (v_[:R1] if k_.startswith("blocks.") else v_)
+                    .float().cpu() for k_, v_ in flatten(params).items()})
+        # the served tokens against the teacher-forced forward (S2_TIE):
+        # dense configs, the main path's bf16 server; MoE, a second server
+        # on the same weights widened to f32 in place
+        ccfg = cfg
+        if cfg.num_experts:
+            del done, steps
+            _widen(params)
+            ccfg = dataclasses.replace(cfg, dtype="float32")
+            done, _, steps, _ = _serve_recorded(ccfg, params, dev)
+        sv = _served_vs_forward(ccfg, params, done, steps, dev,
+                                f"S2 {arch} server {ccfg.dtype}")
+        row["served_vs_forward"] = sv
+        print(f"  S2 {arch} server ({ccfg.dtype}) vs the teacher-forced "
+              f"forward: of {sv['tokens']} served tokens {sv['compared']} "
+              f"compared (left out: {sv['left_out_dropped']} from a dropped"
+              f" assignment on, {sv['left_out_parted']} from a near-tie "
+              "route on), " + f"{sv['checked']} of them the forward's "
+              f"argmax at margins of at least {S2_TIE[ccfg.dtype]} x max(1,"
+              f" max|logit|); logits within {sv['max_gap_rel']:.3g} x that "
+              "of the forward's")
+        del params, tok, done, steps
+        torch.cuda.empty_cache()
+    report["s2"] = s2
+    print(f"S2 done in {time.perf_counter() - t_s:.1f} s")
+
+    from repro_torch.models.params import unflatten
+
+    # -- S3. the card against a CPU twin, one repeat, full width -----------
+    t_s = time.perf_counter()
+    s3 = {}
+    for arch, (c1, flat1) in first.items():
+        for S in S3_S:
+            tok = torch.from_numpy(next(synthetic.token_batches(
+                1, S, c1.vocab_size, seed=1))[0]["tokens"])
+            out, rts = {}, {}
+            with torch.no_grad():
+                for dt in ("float32", "bfloat16"):
+                    cast = getattr(torch, dt)
+                    cd = dataclasses.replace(c1, dtype=dt)
+                    pd = unflatten({k_: v_.to(dev, cast)
+                                    for k_, v_ in flat1.items()})
+                    pc = unflatten({k_: v_.to(cast)
+                                    for k_, v_ in flat1.items()})
+                    (out[dt, "card"], _), rts[dt, "card"] = _routed(
+                        lm.forward, cd, pd, tok.to(dev))
+                    (out[dt, "cpu"], _), rts[dt, "cpu"] = _routed(
+                        lm.forward, cd, pc, tok)
+                    if dt == "float32":
+                        nudged = dict(pd, embed=pd["embed"] * (1 + 1e-7))
+                        out["nudged"] = lm.forward(cd, nudged,
+                                                   tok.to(dev))[0]
+                    del pd, pc
+            want = out["float32", "cpu"][0]
+            got = out["float32", "card"][0].cpu()
+            keep = torch.ones(S, dtype=torch.bool)
+            for (pc_, ec, _, _), (_, ed, _, _) in zip(rts["float32", "cpu"],
+                                                       rts["float32",
+                                                           "card"]):
+                part = (ec != ed).any(-1)
+                check(not (part & ~_near_tie(pc_, c1.experts_per_token))
+                      .any(), f"S3 {arch} S={S}: a route differs between "
+                      "the card and the CPU away from a near-tie")
+                keep &= torch.from_numpy(~part)
+            check(int((~keep).sum()) <= ROUTE_LEAST * S, f"S3 {arch} S={S}: "
+                  f"{int((~keep).sum())} tokens routed otherwise")
+            sens = float((out["nudged"][0].cpu() - got).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            diff = float((got[keep] - want[keep]).abs().max())
+            lim = LM_TWIN_TOL * scale + SENS_K * sens
+            check(diff <= lim, f"S3 {arch} S={S} f32: card vs CPU differ by "
+                  f"{diff} > {lim}")
+
+            def row_err(a):
+                d = (a[0].cpu().float() - want).reshape(-1, want.shape[-1])
+                return float(d.pow(2).mean(-1).sqrt().median()) / float(
+                    want.pow(2).mean().sqrt())
+            e_card = row_err(out["bfloat16", "card"])
+            e_cpu = row_err(out["bfloat16", "cpu"])
+            check(e_card <= BF16_FACTOR * e_cpu + BF16_FLOOR,
+                  f"S3 {arch} S={S} bf16: card's median row error from f32 "
+                  f"{e_card} vs the CPU's {e_cpu}")
+            s3[f"{arch} S={S}"] = {
+                "f32_max_diff": diff, "scale": scale, "sensitivity": sens,
+                "tokens_routed_otherwise": int((~keep).sum()),
+                "bf16_row_err_card": e_card, "bf16_row_err_cpu": e_cpu}
+            print(f"  S3 card vs CPU {arch} 1 repeat S={S}: f32 max diff "
+                  f"{diff:.3g} (scale {scale:.3g}, sensitivity {sens:.3g}, "
+                  f"{int((~keep).sum())} near-tie routes left out); bf16 "
+                  f"median row error from the CPU's f32: card {e_card:.4g}, "
+                  f"CPU {e_cpu:.4g}")
+            del out
+    report["s3"] = s3
+    print(f"S3 done in {time.perf_counter() - t_s:.1f} s")
+
+    # -- S4. the ring cache past the window: decode vs the forward ---------
+    t_s = time.perf_counter()
+    s4 = {}
+    for arch, (c1, flat1) in first.items():
+        params = unflatten({k_: v_.to(dev) for k_, v_ in flat1.items()})
+        tok = torch.from_numpy(next(synthetic.token_batches(
+            1, S4_LEN, c1.vocab_size, seed=2))[0]["tokens"]).to(dev)
+        with torch.no_grad():
+            (full, _), frt = _routed(lm.forward, c1, params, tok)
+            cache = lm.init_cache(c1, 1, S4_LEN, dev)
+            ring = [blk["k"].shape[2] for blk in cache.values()
+                    if "k" in blk]
+            check(min(ring) == c1.sliding_window < S4_LEN,
+                  f"S4 {arch}: cache lengths {ring}, no ring of the window")
+            rows, drt = [], []
+            for t_ in range(S4_LEN):
+                (lg, _), r_ = _routed(lm.decode_step, c1, params, cache,
+                                     tok[:, t_:t_ + 1],
+                                     torch.tensor([t_], device=dev))
+                rows.append(lg[0])
+                drt.append(r_)
+            dec = torch.stack(rows)
+        dropped = np.zeros(S4_LEN, bool)
+        parted = np.zeros(S4_LEN, bool)
+        if c1.num_experts:
+            for j, (pf, ef, posf, C) in enumerate(frt):
+                dropped |= (posf >= C).reshape(S4_LEN, -1).any(-1)
+                ed = np.stack([r_[j][1][0] for r_ in drt])
+                part = (ef != ed).any(-1)
+                check(not (part & ~_near_tie(pf, c1.experts_per_token))
+                      .any(), f"S4 {arch}: decode routes a token otherwise "
+                      "than the forward away from a near-tie")
+                check(all(int((r_[j][2] >= r_[j][3]).sum()) == 0
+                          for r_ in drt), f"S4 {arch}: batch-1 decode "
+                      "dropped an assignment")
+                parted |= part
+        # a token the forward dropped at its capacity is computed in full
+        # by the batch-1 decode (the reference's batch-dependent capacity)
+        keep = torch.from_numpy(~(dropped | parted))
+        check(int(parted.sum()) <= ROUTE_LEAST * S4_LEN
+              and int(keep[S4_LEN - 64:].sum()) > 0
+              and int(keep.sum()) >= S4_LEAST * S4_LEN,
+              f"S4 {arch}: {int(dropped.sum())} positions dropped by the "
+              f"forward and {int(parted.sum())} routed otherwise: too few "
+              "left to compare")
+        gap_all = (dec - full[0]).abs().amax(-1).cpu()
+        gap = float(gap_all[keep].max())
+        wrapped = float(gap_all[keep & (torch.arange(S4_LEN)
+                                        >= c1.sliding_window)].max())
+        check(gap <= S4_GAP, f"S4 {arch}: decode vs the windowed forward "
+              f"differ by {gap} > {S4_GAP}")
+        s4[arch] = {"positions": S4_LEN, "ring": min(ring), "max_gap": gap,
+                    "max_gap_after_wrap": wrapped,
+                    "dropped_by_forward": int(dropped.sum()),
+                    "near_tie_routes": int(parted.sum())}
+        print(f"  S4 {arch} 1 repeat f32: {S4_LEN} decode steps through a "
+              f"{min(ring)}-position ring (wraps at {c1.sliding_window}); "
+              f"logits within {gap:.3g} of the windowed forward's "
+              f"({wrapped:.3g} after the wrap; threshold {S4_GAP}) at "
+              f"{int(keep.sum())} positions; left out: "
+              f"{int(dropped.sum())} the forward dropped at its capacity, "
+              f"{int(parted.sum())} near-tie routes")
+        del params, tok, full, cache, rows, dec
+        torch.cuda.empty_cache()
+    report["s4"] = s4
+    del first
+    print(f"S4 done in {time.perf_counter() - t_s:.1f} s")
+
+    # -- S5. training through launch.train, counted -----------------------
+    t_s = time.perf_counter()
+    s5, trained = {}, {}
+    for i, arch in enumerate(S5_ARCHS):
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, num_layers=lm.block_period(base))
+        n_attn = cfg.num_layers
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        counts = []
+        seq = ARCH_S
+        res = ltrain.train(cfg, steps=S5_STEPS, batch=1, seq=seq,
+                           lr=LT_LR, device=dev, seed=SEED + 80 + i,
+                           log_every=0, heartbeat=lambda s, t: counts.append(
+                               dict(ops.launches())))
+        torch.cuda.synchronize()
+        launches = ops.launches()
+        trained[arch] = launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        before = {k_: 0 for k_ in launches}
+        for j, now in enumerate(counts):
+            diff = {k_: now[k_] - before[k_] for k_ in now}
+            check(diff == {**{k_: 0 for k_ in now},
+                           "flash_attention": n_attn,
+                           "flash_attention_bwd": n_attn},
+                  f"S5 {arch} step {j}: launches {diff}")
+            before = now
+        check(len(res.losses) == S5_STEPS
+              and all(map(math.isfinite, res.losses)),
+              f"S5 {arch}: losses {res.losses}")
+        # two more steps on one batch, from the run's own AdamW state (a
+        # second state beside it would not fit at gemma2's S=8192)
+        params, opt = res.params, res.opt_state
+        res.opt_state = None
+        step = loop.make_lm_step(cfg, params, lambda s: 1e-3)
+        batch = {k_: torch.from_numpy(v_).to(dev) for k_, v_ in next(
+            synthetic.token_batches(1, seq, cfg.vocab_size, seed=7))[0]
+            .items()}
+        opt, m0 = step(opt, batch, S5_STEPS)
+        opt, m1 = step(opt, batch, S5_STEPS + 1)
+        aux0 = float(m0["moe_aux"])
+        check(math.isfinite(aux0) and (aux0 > 0) == bool(cfg.num_experts),
+              f"S5 {arch}: aux loss {aux0}")
+        check(float(m1["loss"]) < float(m0["loss"]), f"S5 {arch}: the same "
+              "batch's loss did not drop after one step")
+        names = [c for k_ in ("flash_attention", "flash_attention_bwd")
+                 for c in LT_CNAMES[k_]]
+        fp, by_name = wall_profile(lambda: step(opt, batch, S5_STEPS + 2),
+                                   reps=2,
+                                   expect={c: n_attn for c in names})
+        lib = [n_ for n_ in by_name if any(x in n_ for x in LIB_ATTN)]
+        check(not lib, f"S5 {arch}: PyTorch attention kernels in the "
+              f"training step: {lib}")
+        fp["step_wall_ms"] = 1e3 * statistics.median(res.step_s[1:])
+        fp["peak_gib"] = peak
+        busy = fp["device_busy_ms"]
+        if by_name:
+            for k_ in ("flash_attention", "flash_attention_bwd"):
+                us = sum(v_ for n_, v_ in by_name.items()
+                         if any(c in n_ for c in LT_CNAMES[k_]))
+                fp[f"{k_}_us_per_launch"] = us / n_attn
+                fp[f"{k_}_share"] = us / 1e3 / busy
+        s5[arch] = {"layers": cfg.num_layers, "batch": 1, "seq": seq,
+                    "losses": res.losses, "aux": aux0,
+                    "same_batch_loss": [float(m0["loss"]),
+                                        float(m1["loss"])], **fp}
+        print(f"  S5 {arch} {cfg.num_layers} layers (one repeat) B=1 "
+              f"S={seq} bf16: {S5_STEPS} steps, loss {res.losses[0]:.4f}"
+              f" -> {res.losses[-1]:.4f}, aux {aux0:.4g}; step wall "
+              f"{fp['step_wall_ms']:.3f} ms, device busy " + (
+                  "not measured" if busy is None else
+                  f"{busy:.3f} ms, idle share {fp['idle_share']:.3f}, flash "
+                  f"fwd {fp['flash_attention_us_per_launch']:.1f} us and bwd"
+                  f" {fp['flash_attention_bwd_us_per_launch']:.1f} us a "
+                  "launch") + f"; peak memory {peak:.2f} GiB")
+        for kname, us_ in fp["top_kernels_us"]:
+            print(f"    {us_:9.1f} us  {kname[:90]}")
+        del params, res, step, opt, batch, m0, m1
+        torch.cuda.empty_cache()
+    report["s5"] = s5
+    print(f"S5 done in {time.perf_counter() - t_s:.1f} s")
+
+    out = []
+    for arch in ARCH_ENTRIES:
+        for name, replaces in (
+                ("flash_attention", "src/repro/kernels/flash_attention.py:65"),
+                ("flash_attention_bwd", "none: no TPU kernel (the "
+                 "reference's LM forward is jnp code that XLA "
+                 "differentiates, src/repro/models/layers.py:165)")):
+            t = entries[f"{name}[{arch}]"]
+            step_us = s5.get(arch, {}).get(f"{name}_us_per_launch")
+            out.append({
+                "name": f"{name}[{arch}]", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": replaces,
+                "launches": served_launch[arch][name] + trained[arch][name],
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "device_ms": t["device_ms"],
+                "library_device_ms": t["library_device_ms"],
+                "step_device_ms": None if step_us is None else step_us / 1e3,
+                "library": lib_note[arch]})
+    return out
 
 
 def row(shape, fns, args, nbytes, op_secs, library_args=None):
@@ -2188,14 +3187,30 @@ def main() -> None:
                   + dev_us)
     report["times"] = rows
 
+    phase_s = {"build and XR (slice 1)": time.perf_counter() - t0}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        print(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
     # -- slice 2: the LM path (LM 1-5 in lm_slice) --------------------------
-    lm_entries = lm_slice(dev, gen, report)
+    lm_entries = phase("LM serving (slice 2)", lm_slice, dev, gen, report)
 
     # -- slice 5: XR training (T1-T4 in train_slice) -----------------------
-    train_entry = train_slice(dev, gen, report, dw_shapes)
+    train_entry = phase("XR training (slice 5)", train_slice, dev, gen,
+                        report, dw_shapes)
 
     # -- slice 6: LM training (LT1-LT5 in lm_train_slice) ------------------
-    lm_train_entries = lm_train_slice(dev, gen, report)
+    lm_train_entries = phase("LM training (slice 6)", lm_train_slice, dev,
+                             gen, report)
+
+    # -- slice 9: the dense and MoE decoders (S1-S5 in arch_slice) ---------
+    arch_entries = phase("dense and MoE decoders (slice 9)", arch_slice, dev,
+                         gen, report)
+    report["phase_s"] = phase_s
 
     # -- 9. the kernels line -----------------------------------------------
     # depthwise: summed over the 26 stride-1 steps of one DetNet b8 and one
@@ -2237,7 +3252,7 @@ def main() -> None:
             "device_ms": device[name]["ms"],
             "plain_device_ms": device[name]["plain_ms"],
             "library_device_ms": device[name]["library_ms"]})
-    kernels += lm_entries + [train_entry] + lm_train_entries
+    kernels += lm_entries + [train_entry] + lm_train_entries + arch_entries
     report["kernels"] = kernels
     report["profiler_edge_loss"].append(edge_loss(t0))
     print("profiler loss at an unpadded window's start: " + "; ".join(

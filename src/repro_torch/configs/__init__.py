@@ -1,7 +1,9 @@
 """Architecture registry of the port: ``get_config`` / ``get_smoke``.
 
-The paper's XR workloads and two of the JAX package's LM architectures are
-ported; every other name of ``repro.configs`` raises ``KeyError``.
+The paper's XR workloads and seven of the JAX package's ten LM
+architectures are ported (in the reference registry's order); the others
+(phi-3-vision-4.2b, whisper-small, jamba-1.5-large-398b) raise
+``KeyError``.
 """
 from __future__ import annotations
 
@@ -12,12 +14,17 @@ from repro_torch.configs.base import (ConvLayerSpec, ModelConfig, XRConfig,
                                       smoke, smoke_xr)
 
 _MODULES: Dict[str, str] = {
+    "gemma2-9b": "gemma2_9b",
+    "deepseek-7b": "deepseek_7b",
+    "yi-34b": "yi_34b",
     "llama3.2-1b": "llama3p2_1b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "grok-1-314b": "grok1_314b",
     "mamba2-1.3b": "mamba2_1p3b",
     "detnet": "detnet",
     "edsnet": "edsnet",
 }
-LM_ARCHS: List[str] = ["llama3.2-1b", "mamba2-1.3b"]
+LM_ARCHS: List[str] = [k for k in _MODULES if k not in ("detnet", "edsnet")]
 XR_ARCHS: List[str] = ["detnet", "edsnet"]
 
 __all__ = ["ConvLayerSpec", "LM_ARCHS", "ModelConfig", "XRConfig", "XR_ARCHS",

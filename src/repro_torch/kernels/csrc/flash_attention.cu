@@ -106,6 +106,31 @@
 //   first (the query tile is the slowest grid dimension, reversed). In the
 //   dK/dV kernels, query tiles below the key block are never loaded and
 //   the first key blocks, which walk the most query tiles, go first.
+// Sliding window (``window`` > 0, a runtime argument, 0 = off): query qi
+//   sees key kj iff kj > qi - window (and kj <= qi when causal), as the
+//   reference's local layers mask (src/repro/models/layers.py:184-191).
+//   Tiles are skipped on both sides: a query tile starts at key tile
+//   (q0 - window + 1) / BK; in dK/dV a key block stops at the query tile of
+//   its last key + window - 1; tiles that straddle the window's lower edge
+//   are masked as the diagonal tiles are. A row whose first tile is wholly
+//   under its window keeps m = -1e30 through it: its exponent offset is 0
+//   there (every probability ex2(-huge) = 0), and the first tile it sees
+//   rescales the running sums by exp(-1e30 - m) = 0.
+// Logit softcap (``cap`` > 0, runtime, 0 = off): the scaled f32 score
+//   becomes cap tanh(score / cap) (the accurate tanhf, never tanh.approx)
+//   before the mask and the softmax, as the reference's _softcap
+//   (src/repro/models/layers.py:95-98). The bf16 forward folds the scale
+//   into its exp2 only without a cap; with one it caps the scaled score and
+//   multiplies by log2(e). The backward recomputes t = tanh(score / cap)
+//   and multiplies dS by dsc/dscore = 1 - t^2. Both are runtime values.
+//   The tensor-core kernels are instantiated in three modes, picked at
+//   launch (``mode_of``): 0 neither (window forced to 0, so the kernel is
+//   the plain causal one), 1 the window, 2 the window and the cap. With
+//   one instantiation for all, the runtime tests on window and cap inside
+//   their loops cost the uncapped, unwindowed attention 3.5% (forward)
+//   and 22% (backward) at the Llama shape (tools/flash_llama_ab.py, parent
+//   against change on one card). The CUDA-core kernels, the f32 twin,
+//   test both at run time.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -142,8 +167,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o,
-             float* __restrict__ lse, int S, int G, int causal, float scale,
-             Strides sq, Strides sk, Strides sv, Strides so) {
+             float* __restrict__ lse, int S, int G, int causal, int window,
+             float cap, float scale, Strides sq, Strides sk, Strides sv,
+             Strides so) {
   extern __shared__ float smem[];
   float* Qs = smem;                      // [BQ][D+1]
   float* Ks = Qs + BQ * (D + 1);         // [BK][D+1]
@@ -178,7 +204,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int n_kt = causal ? qt + 1 : (S + BK - 1) / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  const int kt0 = window > 0 ? max(0, (q0 - window + 1) / BK) : 0;
+  const float cap_in = cap > 0.f ? 1.f / cap : 0.f;
+  for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                     // last tile's readers are done
     for (int i = tid; i < BK * D; i += NT) {
@@ -194,7 +222,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < RG; ++i)
 #pragma unroll
       for (int j = 0; j < CG; ++j) s[i][j] = 0.f;
-#pragma unroll 8
+    // d steps of loads in flight: at 8 with the softcap's tanhf beside
+    // them, ptxas held D = 96 to 128 registers and spilled
+    constexpr int QK_UNROLL = D == 96 ? 4 : 8;
+#pragma unroll QK_UNROLL
     for (int d = 0; d < D; ++d) {
       float qv[RG], kv[CG];
 #pragma unroll
@@ -215,7 +246,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < CG; ++j) {
         const int kj = k0 + cg + CG * j;
         float x = s[i][j] * scale;
-        if (kj >= S || (causal && kj > qi)) x = NEG_INF;
+        if (cap > 0.f) x = cap * tanhf(x * cap_in);
+        if (kj >= S || (causal && kj > qi) || (window > 0 && kj <= qi - window))
+          x = NEG_INF;
         s[i][j] = x;
         mt = fmaxf(mt, x);
       }
@@ -224,10 +257,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
       const float m_new = fmaxf(m[i], mt);
       const float alpha = expf(m[i] - m_new);
+      const float mo = m_new == NEG_INF ? 0.f : m_new;   // all masked so far
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < CG; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        const float p = expf(s[i][j] - mo);
         Ps[(rg * RG + i) * (BK + 1) + cg + CG * j] = p;
         rs += p;
       }
@@ -427,6 +461,21 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// exp(sc - lse) of a raw score s, for nl2 = -lse log2(e): sc = s scale
+// without a cap, cap tanh(s scale / cap) with one (cap_in = scale / cap);
+// f = dsc / d(s scale), the chain factor of dS (1 - t^2; unset without a
+// cap)
+template <bool CAP>
+__device__ __forceinline__ float prob(float s, float nl2, float scale_log2,
+                                      float cap, float cap_in, float& f) {
+  if constexpr (CAP) {
+    const float t = tanhf(s * cap_in);
+    f = 1.f - t * t;
+    return ex2(fmaf(cap * t, LOG2E, nl2));
+  }
+  return ex2(fmaf(s, scale_log2, nl2));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -465,16 +514,19 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
   }
 }
 
-template <int D>
+template <int D, int MODE>
 __global__ void __launch_bounds__(NT, Tile<D>::MIN_BLOCKS)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
-                int G, int causal, float scale, float scale_log2, Strides sq,
-                Strides sk, Strides sv, Strides so) {
+                int G, int causal, int window, float cap, float scale,
+                float scale_log2, Strides sq, Strides sk, Strides sv,
+                Strides so) {
   using T = Tile<D>;
   constexpr int NO = D / 2;          // O accumulator registers per thread
+  constexpr bool CAP = MODE == 2;
+  if constexpr (MODE == 0) window = 0;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t sQ = (raw + 1023) & ~1023u;
@@ -488,17 +540,25 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.z)) * BQ;
   const int n_all = (S + BK - 1) / BK;
   const int n_kt = causal ? min(n_all, (q0 + BQ - 1) / BK + 1) : n_all;
+  const int kt0 = window > 0 ? max(0, (q0 - window + 1) / BK) : 0;
+  // the scores' unit in the exponent: raw scores (the scale folded into
+  // ex2) without a cap, capped scaled scores with one
+  const float unit = CAP ? 1.f : scale;
+  const float unit_log2 = CAP ? LOG2E : scale_log2;
+  const float cap_in = CAP ? scale / cap : 0.f;
 
   const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
   const __nv_bfloat16* kb = k + b * sk.b + hk * sk.h;
   const __nv_bfloat16* vb = v + b * sv.b + hk * sv.h;
 
-  // Q and tile 0 (commit group 0); tile kt + 1 is issued once every
+  // Q and tile kt0 (commit group 0); tile kt + 1 is issued once every
   // thread has passed iteration kt's barrier, i.e. is done with tile kt - 1
   // and its stage
   load_tile<D, BQ>(sQ, qb, sq.s, q0, S, tid);
-  load_tile<D, BK>(sK, kb, sk.s, 0, S, tid);
-  load_tile<D, BK>(sV, vb, sv.s, 0, S, tid);
+  load_tile<D, BK>(sK + (kt0 % STAGES) * T::KV_BYTES, kb, sk.s, kt0 * BK, S,
+                   tid);
+  load_tile<D, BK>(sV + (kt0 % STAGES) * T::KV_BYTES, vb, sv.s, kt0 * BK, S,
+                   tid);
   cp_async_commit();
 
   // this thread's rows of the warpgroup's 64 (the accumulator fragment:
@@ -512,7 +572,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < NO; ++i) acc[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kt0; kt < n_kt; ++kt) {
     cp_async_wait<0>();
     fence_proxy_async();
     __syncthreads();                 // tile kt is in shared memory
@@ -525,9 +585,10 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
     const int k0 = kt * BK;
     const uint32_t st = (kt % STAGES) * T::KV_BYTES;
-    // a tile wholly above this warpgroup's diagonal, or a warpgroup wholly
-    // past S, has nothing to add
-    if (qw0 < S && (!causal || k0 < qw0 + 64)) {
+    // a tile wholly above this warpgroup's diagonal or wholly under its
+    // window, or a warpgroup wholly past S, has nothing to add
+    if (qw0 < S && (!causal || k0 < qw0 + 64) &&
+        !(window > 0 && k0 + BK - 1 <= qw0 - window)) {
       float s[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = 0.f;
@@ -540,15 +601,22 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       wgmma_wait0();
       reg_fence(s);
 
-      // m, l and the max run on raw scores (the scale is positive); each
-      // probability is one FFMA and one ex2: 2^(s scale_log2 - m scale_log2)
-      if ((causal && k0 + BK - 1 > qw0) || k0 + BK > S) {
+      if constexpr (CAP) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = cap * tanhf(s[i] * cap_in);
+      }
+      // m, l and the max run on scores in ``unit`` (positive); each
+      // probability is one FFMA and one ex2: 2^(s unit_log2 - m unit_log2)
+      if ((causal && k0 + BK - 1 > qw0) || k0 + BK > S ||
+          (window > 0 && k0 <= qw0 + 63 - window)) {
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int kj = k0 + j * 8 + cq + (e & 1);
-            if (kj >= S || (causal && kj > (e < 2 ? r0 : r1)))
+            const int r = e < 2 ? r0 : r1;
+            if (kj >= S || (causal && kj > r) ||
+                (window > 0 && kj <= r - window))
               s[j * 4 + e] = NEG_INF;
           }
       }
@@ -563,19 +631,24 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
         mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
       }
-      const float a0 = ex2((m0 - mx0) * scale_log2);
-      const float a1 = ex2((m1 - mx1) * scale_log2);
+      const float a0 = ex2((m0 - mx0) * unit_log2);
+      const float a1 = ex2((m1 - mx1) * unit_log2);
       m0 = mx0;
       m1 = mx1;
-      const float b0 = -mx0 * scale_log2, b1 = -mx1 * scale_log2;
+      // a row with every key so far masked (under its window) takes offset
+      // 0: its probabilities are ex2(-huge) = 0, never the residue of
+      // -1e30 u + 1e30 u (without a window no row is: key 0 comes first)
+      const bool w = window > 0;
+      const float b0 = w && mx0 == NEG_INF ? 0.f : -mx0 * unit_log2;
+      const float b1 = w && mx1 == NEG_INF ? 0.f : -mx1 * unit_log2;
       uint32_t p[16];
       float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float p0 = ex2(fmaf(s[j * 4], scale_log2, b0));
-        const float p1 = ex2(fmaf(s[j * 4 + 1], scale_log2, b0));
-        const float p2 = ex2(fmaf(s[j * 4 + 2], scale_log2, b1));
-        const float p3 = ex2(fmaf(s[j * 4 + 3], scale_log2, b1));
+        const float p0 = ex2(fmaf(s[j * 4], unit_log2, b0));
+        const float p1 = ex2(fmaf(s[j * 4 + 1], unit_log2, b0));
+        const float p2 = ex2(fmaf(s[j * 4 + 2], unit_log2, b1));
+        const float p3 = ex2(fmaf(s[j * 4 + 3], unit_log2, b1));
         rs0 += p0 + p1;
         rs1 += p2 + p3;
         p[j * 2] = pack_bf16(p0, p1);
@@ -632,10 +705,10 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<uint32_t*>(ob + r1 * so.s + j * 8 + cq) =
           pack_bf16(acc[j * 4 + 2] / l1, acc[j * 4 + 3] / l1);
   }
-  if (lse != nullptr && lane % 4 == 0) {  // m is on raw scores
+  if (lse != nullptr && lane % 4 == 0) {  // m is in ``unit``
     float* lb = lse + (static_cast<int64_t>(b) * gridDim.x + h) * S;
-    if (r0 < S) lb[r0] = m0 * scale + logf(l0);
-    if (r1 < S) lb[r1] = m1 * scale + logf(l1);
+    if (r0 < S) lb[r0] = m0 * unit + logf(l0);
+    if (r1 < S) lb[r1] = m1 * unit + logf(l1);
   }
 }
 
@@ -796,7 +869,7 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* base, int64_t stride,
 // query heads' 64-row Q and dO tiles (with their lse and delta) streamed in
 // a fixed order, transposed scores so that P^T and dS^T come out of the
 // accumulator as the register A operands of dV += P^T dO and dK += dS^T Q
-template <int D>
+template <int D, int MODE>
 __global__ void __launch_bounds__(Bwd<D>::THREADS, Bwd<D>::MIN_BLOCKS_KV)
 flash_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -806,11 +879,13 @@ flash_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q,
                   const float* __restrict__ delta,
                   __nv_bfloat16* __restrict__ dk,
                   __nv_bfloat16* __restrict__ dv, int S, int H, int G,
-                  int causal, float scale, float scale_log2, Strides sq,
-                  Strides sk, Strides sv, Strides sdo, Strides sdk,
-                  Strides sdv) {
+                  int causal, int window, float cap, float scale,
+                  float scale_log2, Strides sq, Strides sk, Strides sv,
+                  Strides sdo, Strides sdk, Strides sdv) {
   using W = Bwd<D>;
   constexpr int TR = W::TR, NTH = W::THREADS;
+  constexpr bool CAP = MODE == 2;
+  if constexpr (MODE == 0) window = 0;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -832,7 +907,12 @@ flash_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q,
   const int kw0 = k0 + row0;
   const int n_q = (S + TR - 1) / TR;
   const int qt0 = causal ? k0 / TR : 0;           // tiles below are masked
-  const int per = n_q - qt0, n_t = G * per;
+  // and tiles past the window of the block's last key
+  const int qt1 = window > 0
+                      ? min(n_q, (k0 + W::ROWS - 1 + window - 1) / TR + 1)
+                      : n_q;
+  const int per = qt1 - qt0, n_t = G * per;
+  const float cap_in = cap > 0.f ? scale / cap : 0.f;
 
   const __nv_bfloat16* kb = k + b * sk.b + hk * sk.h;
   const __nv_bfloat16* vb = v + b * sv.b + hk * sv.h;
@@ -874,14 +954,19 @@ flash_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q,
       cp_async_commit();
     }
     const int q0 = (qt0 + t % per) * TR, st = t % STAGES;
-    // keys past S, or a tile wholly above this warpgroup's keys, add nothing
-    if (kw0 >= S || (causal && q0 + TR - 1 < kw0)) continue;
+    // keys past S, or a tile wholly above this warpgroup's keys or wholly
+    // past their window, add nothing
+    if (kw0 >= S || (causal && q0 + TR - 1 < kw0) ||
+        (window > 0 && q0 >= kw0 + 63 + window))
+      continue;
     const uint32_t tQ = sQ + st * W::TILE_BYTES, tG = sG + st * W::TILE_BYTES;
     float s[32], dp[32];
     mma_scores<D>(s, dp, sK, sV, tQ, tG, row0);   // S^T = K Q^T, dP^T = V dO^T
 
-    // P^T and dS^T, 0 where the query is past S or before the key
-    const bool edge = (causal && q0 < kw0 + 63) || q0 + TR > S;
+    // P^T and dS^T, 0 where the query is past S, before the key or past
+    // its window
+    const bool edge = (causal && q0 < kw0 + 63) || q0 + TR > S ||
+                      (window > 0 && q0 + TR - 1 >= kw0 + window);
     uint32_t pa[16], da[16];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -892,12 +977,18 @@ flash_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float le = e & 1 ? l.y : l.x, de = e & 1 ? dl.y : dl.x;
-        p[e] = ex2(fmaf(s[j * 4 + e], scale_log2, -le * LOG2E));
+        float f;
+        p[e] = prob<CAP>(s[j * 4 + e], -le * LOG2E, scale_log2, cap, cap_in,
+                         f);
         if (edge) {
           const int qi = q0 + j * 8 + cq + (e & 1);
-          if (qi >= S || (causal && (e < 2 ? kr0 : kr1) > qi)) p[e] = 0.f;
+          const int kr = e < 2 ? kr0 : kr1;
+          if (qi >= S || (causal && kr > qi) ||
+              (window > 0 && qi >= kr + window))
+            p[e] = 0.f;
         }
         ds[e] = p[e] * (dp[j * 4 + e] - de);
+        if constexpr (CAP) ds[e] *= f;
       }
       pa[j * 2] = pack_bf16(p[0], p[1]);
       pa[j * 2 + 1] = pack_bf16(p[2], p[3]);
@@ -933,7 +1024,7 @@ flash_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q,
 // dQ of one (batch, q head, ROWS queries): Q and dO resident, 64-key K and
 // V tiles streamed up to the diagonal; dS comes out of the accumulator as
 // the register A operand of dQ += dS K (the forward's P V with K for V)
-template <int D>
+template <int D, int MODE>
 __global__ void __launch_bounds__(Bwd<D>::THREADS, Bwd<D>::MIN_BLOCKS_Q)
 flash_bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
@@ -941,10 +1032,13 @@ flash_bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ dO,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 __nv_bfloat16* __restrict__ dq, int S, int H, int G,
-                int causal, float scale, float scale_log2, Strides sq,
-                Strides sk, Strides sv, Strides sdo, Strides sdq) {
+                int causal, int window, float cap, float scale,
+                float scale_log2, Strides sq, Strides sk, Strides sv,
+                Strides sdo, Strides sdq) {
   using W = Bwd<D>;
   constexpr int TR = W::TR, NTH = W::THREADS;
+  constexpr bool CAP = MODE == 2;
+  if constexpr (MODE == 0) window = 0;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -963,14 +1057,17 @@ flash_bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
   const int qw0 = q0 + row0;
   const int n_all = (S + TR - 1) / TR;
   const int n_kt = causal ? min(n_all, (q0 + W::ROWS - 1) / TR + 1) : n_all;
+  const int kt0 = window > 0 ? max(0, (q0 - window + 1) / TR) : 0;
+  const float cap_in = cap > 0.f ? scale / cap : 0.f;
 
   const __nv_bfloat16* kb = k + b * sk.b + hk * sk.h;
   const __nv_bfloat16* vb = v + b * sv.b + hk * sv.h;
   load_tile<D, W::ROWS, NTH>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
   load_tile<D, W::ROWS, NTH>(sG, dO + b * sdo.b + h * sdo.h, sdo.s, q0, S,
                              tid);
-  load_tile<D, TR, NTH>(sK, kb, sk.s, 0, S, tid);
-  load_tile<D, TR, NTH>(sV, vb, sv.s, 0, S, tid);
+  const uint32_t st0 = (kt0 % STAGES) * W::TILE_BYTES;
+  load_tile<D, TR, NTH>(sK + st0, kb, sk.s, kt0 * TR, S, tid);
+  load_tile<D, TR, NTH>(sV + st0, vb, sv.s, kt0 * TR, S, tid);
   cp_async_commit();
 
   const int r0 = qw0 + warp * 16 + lane / 4, r1 = r0 + 8;
@@ -984,7 +1081,7 @@ flash_bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < W::DA / 2; ++i) acc[i] = 0.f;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kt0; kt < n_kt; ++kt) {
     cp_async_wait<0>();
     fence_proxy_async();
     __syncthreads();                 // tile kt is in shared memory
@@ -995,27 +1092,36 @@ flash_bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
       cp_async_commit();
     }
     const int k0 = kt * TR;
-    // a tile wholly above this warpgroup's diagonal, or a warpgroup wholly
-    // past S, has nothing to add
-    if (qw0 >= S || (causal && k0 > qw0 + 63)) continue;
+    // a tile wholly above this warpgroup's diagonal or wholly under its
+    // window, or a warpgroup wholly past S, has nothing to add
+    if (qw0 >= S || (causal && k0 > qw0 + 63) ||
+        (window > 0 && k0 + TR - 1 <= qw0 - window))
+      continue;
     const uint32_t st = (kt % STAGES) * W::TILE_BYTES;
     float s[32], dp[32];
     mma_scores<D>(s, dp, sQ, sG, sK + st, sV + st, row0);  // S, dP = dO V^T
 
-    // dS, 0 where the key is past S or past the query
-    const bool edge = (causal && k0 + TR - 1 > qw0) || k0 + TR > S;
+    // dS, 0 where the key is past S, past the query or under its window
+    const bool edge = (causal && k0 + TR - 1 > qw0) || k0 + TR > S ||
+                      (window > 0 && k0 <= qw0 + 63 - window);
     uint32_t da[16];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float p = ex2(fmaf(s[j * 4 + e], scale_log2, -(e < 2 ? l0 : l1)));
+        float f;
+        float p = prob<CAP>(s[j * 4 + e], -(e < 2 ? l0 : l1), scale_log2,
+                            cap, cap_in, f);
         if (edge) {
           const int kj = k0 + j * 8 + cq + (e & 1);
-          if (kj >= S || (causal && kj > (e < 2 ? r0 : r1))) p = 0.f;
+          const int r = e < 2 ? r0 : r1;
+          if (kj >= S || (causal && kj > r) ||
+              (window > 0 && kj <= r - window))
+            p = 0.f;
         }
         ds[e] = p * (dp[j * 4 + e] - (e < 2 ? d0 : d1));
+        if constexpr (CAP) ds[e] *= f;
       }
       da[j * 2] = pack_bf16(ds[0], ds[1]);
       da[j * 2 + 1] = pack_bf16(ds[2], ds[3]);
@@ -1071,6 +1177,21 @@ __device__ __forceinline__ void load_rows(float* dst, const float* base,
   }
 }
 
+// exp(sc - lse) of a raw score s where the key is visible (ok), else 0:
+// sc = s scale, or cap tanh(s scale / cap) with a cap (cap_in = scale /
+// cap); f = dsc / d(s scale), dS's chain factor (1 - t^2; 1 without a cap)
+__device__ __forceinline__ float prob(float s, float lse, bool ok, float scale,
+                                      float cap, float cap_in, float& f) {
+  float sc = s * scale;
+  f = 1.f;
+  if (cap > 0.f) {
+    const float t = tanhf(s * cap_in);
+    sc = cap * t;
+    f = 1.f - t * t;
+  }
+  return ok ? expf(sc - lse) : 0.f;
+}
+
 // delta[row] = sum_d dO[row, d] O[row, d] in f32, one warp a (b, h, s) row,
 // lanes summed by shuffles in a fixed order
 __global__ void __launch_bounds__(NT)
@@ -1102,8 +1223,9 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dO,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dk, float* __restrict__ dv, int S, int H,
-               int G, int causal, float scale, Strides sq, Strides sk,
-               Strides sv, Strides sdo, Strides sdk, Strides sdv) {
+               int G, int causal, int window, float cap, float scale,
+               Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
+               Strides sdv) {
   using W = Tile<D>;
   constexpr int BT = W::BT, RS = W::RS, DC = W::DC, LD = W::LD, LP = W::LP;
   extern __shared__ float smem[];
@@ -1119,6 +1241,10 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, rg = tid / 16, cl = tid % 16;
   const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int k0 = kt * BT, n_t = (S + BT - 1) / BT;
+  // query tiles past the window of the tile's last key see none of it
+  const int qt1 = window > 0 ? min(n_t, (k0 + BT - 1 + window - 1) / BT + 1)
+                             : n_t;
+  const float cap_in = cap > 0.f ? scale / cap : 0.f;
   load_rows<D>(Ks, k + b * sk.b + hk * sk.h, sk.s, k0, S, tid);
   load_rows<D>(Vs, v + b * sv.b + hk * sv.h, sv.s, k0, S, tid);
 
@@ -1132,7 +1258,7 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
     const int h = hk * G + g;
     const float* lh = lse + (static_cast<int64_t>(b) * H + h) * S;
     const float* dh = delta + (static_cast<int64_t>(b) * H + h) * S;
-    for (int qt = causal ? kt : 0; qt < n_t; ++qt) {
+    for (int qt = causal ? kt : 0; qt < qt1; ++qt) {
       const int q0 = qt * BT;
       __syncthreads();               // the last tile's readers are done
       load_rows<D>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
@@ -1172,10 +1298,12 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < RS; ++j) {
           const int key = k0 + rg * RS + i, jq = cl + 16 * j, qi = q0 + jq;
-          const bool ok = key < S && qi < S && (!causal || key <= qi);
-          const float p = ok ? expf(s[i][j] * scale - Ls[jq]) : 0.f;
+          const bool ok = key < S && qi < S && (!causal || key <= qi) &&
+                          (window == 0 || qi < key + window);
+          float f;
+          const float p = prob(s[i][j], Ls[jq], ok, scale, cap, cap_in, f);
           Ps[(rg * RS + i) * LP + jq] = p;
-          Ds[(rg * RS + i) * LP + jq] = p * (dp[i][j] - Dl[jq]);
+          Ds[(rg * RS + i) * LP + jq] = p * (dp[i][j] - Dl[jq]) * f;
         }
       __syncthreads();
 
@@ -1225,8 +1353,8 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dO,
              const float* __restrict__ lse, const float* __restrict__ delta,
              float* __restrict__ dq, int S, int H, int G, int causal,
-             float scale, Strides sq, Strides sk, Strides sv, Strides sdo,
-             Strides sdq) {
+             int window, float cap, float scale, Strides sq, Strides sk,
+             Strides sv, Strides sdo, Strides sdq) {
   using W = Tile<D>;
   constexpr int BT = W::BT, RS = W::RS, DC = W::DC, LD = W::LD, LP = W::LP;
   extern __shared__ float smem[];
@@ -1258,7 +1386,9 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < DC; ++c) dqa[i][c] = 0.f;
 
   const int n_kt = causal ? qt + 1 : n_t;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  const int kt0 = window > 0 ? max(0, (q0 - window + 1) / BT) : 0;
+  const float cap_in = cap > 0.f ? scale / cap : 0.f;
+  for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * BT;
     __syncthreads();
     load_rows<D>(Ks, k + b * sk.b + hk * sk.h, sk.s, k0, S, tid);
@@ -1296,9 +1426,11 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < RS; ++j) {
         const int iq = rg * RS + i, qi = q0 + iq, key = k0 + cl + 16 * j;
-        const bool ok = key < S && qi < S && (!causal || key <= qi);
-        const float p = ok ? expf(s[i][j] * scale - Ls[iq]) : 0.f;
-        Ds[iq * LP + cl + 16 * j] = p * (dp[i][j] - Dl[iq]);
+        const bool ok = key < S && qi < S && (!causal || key <= qi) &&
+                        (window == 0 || qi < key + window);
+        float f;
+        const float p = prob(s[i][j], Ls[iq], ok, scale, cap, cap_in, f);
+        Ds[iq * LP + cl + 16 * j] = p * (dp[i][j] - Dl[iq]) * f;
       }
     __syncthreads();
 
@@ -1347,8 +1479,8 @@ int allow_smem(Kernel kernel, size_t bytes, uint64_t* done) {
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int64_t B, int64_t H, int64_t S, int64_t G,
-               int causal, float scale, const Strides* st,
-               cudaStream_t stream) {
+               int causal, int window, float cap, float scale,
+               const Strides* st, cudaStream_t stream) {
   constexpr size_t smem = smem_floats<D>() * sizeof(float);
   static uint64_t done = 0;
   const int e = allow_smem(flash_kernel<float, D>, smem, &done);
@@ -1358,41 +1490,56 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   flash_kernel<float, D><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse,
-      static_cast<int>(S), static_cast<int>(G), causal, scale, st[0], st[1],
-      st[2], st[3]);
+      static_cast<int>(S), static_cast<int>(G), causal, window, cap, scale,
+      st[0], st[1], st[2], st[3]);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int MODE>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int64_t B, int64_t H, int64_t S, int64_t G,
-                int causal, float scale, const Strides* st,
-                cudaStream_t stream) {
+                int causal, int window, float cap, float scale,
+                const Strides* st, cudaStream_t stream) {
   constexpr size_t smem = tc::Tile<D>::SMEM;
   static uint64_t done = 0;
-  const int e = allow_smem(tc::flash_tc_kernel<D>, smem, &done);
+  const int e = allow_smem(tc::flash_tc_kernel<D, MODE>, smem, &done);
   if (e) return e;
   const dim3 grid(static_cast<unsigned>(H), static_cast<unsigned>(B),
                   static_cast<unsigned>((S + tc::BQ - 1) / tc::BQ));
-  tc::flash_tc_kernel<D><<<grid, tc::NT, smem, stream>>>(
+  tc::flash_tc_kernel<D, MODE><<<grid, tc::NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, static_cast<int>(S), static_cast<int>(G), causal, scale,
-      scale * tc::LOG2E, st[0], st[1], st[2], st[3]);
+      lse, static_cast<int>(S), static_cast<int>(G), causal, window, cap,
+      scale, scale * tc::LOG2E, st[0], st[1], st[2], st[3]);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core kernels' mode: 0 no window and no cap, 1 a window, 2 a
+// cap (and any window)
+inline int mode_of(int window, float cap) {
+  return cap > 0.f ? 2 : window > 0 ? 1 : 0;
 }
 
 template <int D>
 int launch_fwd(int dtype, const void* q, const void* k, const void* v,
                void* o, float* lse, int64_t B, int64_t H, int64_t S,
-               int64_t G, int causal, float scale, const Strides* st,
-               cudaStream_t stream) {
-  return dtype == 0
-             ? launch_f32<D>(q, k, v, o, lse, B, H, S, G, causal, scale, st,
-                             stream)
-             : launch_bf16<D>(q, k, v, o, lse, B, H, S, G, causal, scale, st,
-                              stream);
+               int64_t G, int causal, int window, float cap, float scale,
+               const Strides* st, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_f32<D>(q, k, v, o, lse, B, H, S, G, causal, window, cap,
+                         scale, st, stream);
+  switch (mode_of(window, cap)) {
+    case 0:
+      return launch_bf16<D, 0>(q, k, v, o, lse, B, H, S, G, causal, window,
+                               cap, scale, st, stream);
+    case 1:
+      return launch_bf16<D, 1>(q, k, v, o, lse, B, H, S, G, causal, window,
+                               cap, scale, st, stream);
+    default:
+      return launch_bf16<D, 2>(q, k, v, o, lse, B, H, S, G, causal, window,
+                               cap, scale, st, stream);
+  }
 }
 
 // st: q, k, v, o, dO, dq, dk, dv
@@ -1400,8 +1547,8 @@ template <int D>
 int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                const float* lse, const void* dO, float* delta, void* dq,
                void* dk, void* dv, int64_t B, int64_t H, int64_t S,
-               int64_t G, int causal, float scale, const Strides* st,
-               cudaStream_t stream) {
+               int64_t G, int causal, int window, float cap, float scale,
+               const Strides* st, cudaStream_t stream) {
   using W = bwd::Tile<D>;
   static uint64_t done_kv = 0, done_q = 0;
   int e = allow_smem(bwd::flash_bwd_dkdv<D>, W::SMEM, &done_kv);
@@ -1426,31 +1573,31 @@ int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
       qt, kt, vt, gt, lse, delta, static_cast<float*>(dk),
       static_cast<float*>(dv),
       static_cast<int>(S), static_cast<int>(H), static_cast<int>(G), causal,
-      scale, st[0], st[1], st[2], st[4], st[6], st[7]);
+      window, cap, scale, st[0], st[1], st[2], st[4], st[6], st[7]);
   e = static_cast<int>(cudaGetLastError());
   if (e) return e;
   bwd::flash_bwd_dq<D><<<dim3(n_t, static_cast<unsigned>(H),
                                  static_cast<unsigned>(B)),
                             bwd::NT, W::SMEM, stream>>>(
       qt, kt, vt, gt, lse, delta, static_cast<float*>(dq), static_cast<int>(S),
-      static_cast<int>(H), static_cast<int>(G), causal, scale, st[0], st[1],
-      st[2], st[4], st[5]);
+      static_cast<int>(H), static_cast<int>(G), causal, window, cap, scale,
+      st[0], st[1], st[2], st[4], st[5]);
   return static_cast<int>(cudaGetLastError());
 }
 
 // bf16: the delta pre-pass, then dK/dV and dQ on the tensor cores
-template <int D>
+template <int D, int MODE>
 int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o,
                   const float* lse, const void* dO, float* delta, void* dq,
                   void* dk, void* dv, int64_t B, int64_t H, int64_t S,
-                  int64_t G, int causal, float scale, const Strides* st,
-                  cudaStream_t stream) {
+                  int64_t G, int causal, int window, float cap, float scale,
+                  const Strides* st, cudaStream_t stream) {
   using W = tc::Bwd<D>;
   using bf = __nv_bfloat16;
   static uint64_t done_kv = 0, done_q = 0;
-  int e = allow_smem(tc::flash_bwd_dkdv_tc<D>, W::SMEM_KV, &done_kv);
+  int e = allow_smem(tc::flash_bwd_dkdv_tc<D, MODE>, W::SMEM_KV, &done_kv);
   if (e) return e;
-  e = allow_smem(tc::flash_bwd_dq_tc<D>, W::SMEM_Q, &done_q);
+  e = allow_smem(tc::flash_bwd_dq_tc<D, MODE>, W::SMEM_Q, &done_q);
   if (e) return e;
   const bf* qt = static_cast<const bf*>(q);
   const bf* kt = static_cast<const bf*>(k);
@@ -1466,19 +1613,20 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o,
   e = static_cast<int>(cudaGetLastError());
   if (e) return e;
   const unsigned n_b = static_cast<unsigned>((S + W::ROWS - 1) / W::ROWS);
-  tc::flash_bwd_dkdv_tc<D><<<dim3(static_cast<unsigned>(H / G),
+  tc::flash_bwd_dkdv_tc<D, MODE><<<dim3(static_cast<unsigned>(H / G),
                                   static_cast<unsigned>(B), n_b),
                              W::THREADS, W::SMEM_KV, stream>>>(
       qt, kt, vt, gt, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv),
       static_cast<int>(S), static_cast<int>(H), static_cast<int>(G), causal,
-      scale, scale * tc::LOG2E, st[0], st[1], st[2], st[4], st[6], st[7]);
+      window, cap, scale, scale * tc::LOG2E, st[0], st[1], st[2], st[4], st[6],
+      st[7]);
   e = static_cast<int>(cudaGetLastError());
   if (e) return e;
-  tc::flash_bwd_dq_tc<D><<<dim3(static_cast<unsigned>(H),
+  tc::flash_bwd_dq_tc<D, MODE><<<dim3(static_cast<unsigned>(H),
                                 static_cast<unsigned>(B), n_b),
                            W::THREADS, W::SMEM_Q, stream>>>(
       qt, kt, vt, gt, lse, delta, static_cast<bf*>(dq), static_cast<int>(S),
-      static_cast<int>(H), static_cast<int>(G), causal, scale,
+      static_cast<int>(H), static_cast<int>(G), causal, window, cap, scale,
       scale * tc::LOG2E, st[0], st[1], st[2], st[4], st[5]);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1488,27 +1636,43 @@ template <int D>
 int launch_bwd_dt(int dtype, const void* q, const void* k, const void* v,
                   const void* o, const float* lse, const void* dO,
                   float* delta, void* dq, void* dk, void* dv, int64_t B,
-                  int64_t H, int64_t S, int64_t G, int causal, float scale,
-                  const Strides* st, cudaStream_t stream) {
-  return dtype == 0
-             ? launch_bwd_f32<D>(q, k, v, o, lse, dO, delta, dq, dk, dv, B, H,
-                                 S, G, causal, scale, st, stream)
-             : launch_bwd_tc<D>(q, k, v, o, lse, dO, delta, dq, dk, dv, B, H,
-                                S, G, causal, scale, st, stream);
+                  int64_t H, int64_t S, int64_t G, int causal, int window,
+                  float cap, float scale, const Strides* st,
+                  cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_bwd_f32<D>(q, k, v, o, lse, dO, delta, dq, dk, dv, B, H, S,
+                             G, causal, window, cap, scale, st, stream);
+  switch (mode_of(window, cap)) {
+    case 0:
+      return launch_bwd_tc<D, 0>(q, k, v, o, lse, dO, delta, dq, dk, dv, B,
+                                 H, S, G, causal, window, cap, scale, st,
+                                 stream);
+    case 1:
+      return launch_bwd_tc<D, 1>(q, k, v, o, lse, dO, delta, dq, dk, dv, B,
+                                 H, S, G, causal, window, cap, scale, st,
+                                 stream);
+    default:
+      return launch_bwd_tc<D, 2>(q, k, v, o, lse, dO, delta, dq, dk, dv, B,
+                                 H, S, G, causal, window, cap, scale, st,
+                                 stream);
+  }
 }
 
 }  // namespace
 
 // q (B,H,S,D), k and v (B,H/G,S,D), o (B,H,S,D), each addressed through
 // strides[12] = {b, h, s} of q, k, v, o (element strides; D is contiguous);
-// lse, if not null, receives the f32 log-sum-exp of the scaled scores of
-// every query row, contiguous (B,H,S). dtype: 0 = float32, 1 = bfloat16.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// lse, if not null, receives the f32 log-sum-exp of the scaled (capped,
+// masked) scores of every query row, contiguous (B,H,S). window > 0: the
+// sliding window (key kj > qi - window); cap > 0: the logit softcap; 0 turns
+// either off. dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError()
+// after the launch (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       int64_t B, int64_t H, int64_t S,
                                       int64_t D, int64_t G, int causal,
-                                      float scale, const int64_t* strides,
+                                      int window, float cap, float scale,
+                                      const int64_t* strides,
                                       int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Strides st[4];
@@ -1516,20 +1680,20 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   switch (D) {
     case 32:
-      return launch_fwd<32>(dtype, q, k, v, o, lse, B, H, S, G, causal, scale,
-                            st, s);
+      return launch_fwd<32>(dtype, q, k, v, o, lse, B, H, S, G, causal,
+                            window, cap, scale, st, s);
     case 64:
-      return launch_fwd<64>(dtype, q, k, v, o, lse, B, H, S, G, causal, scale,
-                            st, s);
+      return launch_fwd<64>(dtype, q, k, v, o, lse, B, H, S, G, causal,
+                            window, cap, scale, st, s);
     case 96:
-      return launch_fwd<96>(dtype, q, k, v, o, lse, B, H, S, G, causal, scale,
-                            st, s);
+      return launch_fwd<96>(dtype, q, k, v, o, lse, B, H, S, G, causal,
+                            window, cap, scale, st, s);
     case 128:
       return launch_fwd<128>(dtype, q, k, v, o, lse, B, H, S, G, causal,
-                             scale, st, s);
+                             window, cap, scale, st, s);
     case 256:
       return launch_fwd<256>(dtype, q, k, v, o, lse, B, H, S, G, causal,
-                             scale, st, s);
+                             window, cap, scale, st, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1538,14 +1702,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 // The backward of flash_attention_launch: dq (B,H,S,D), dk and dv
 // (B,H/G,S,D) from q, k, v, the forward's o and lse, and dO (B,H,S,D);
 // delta is a (B,H,S) f32 scratch. strides[24] = {b, h, s} of q, k, v, o,
-// dO, dq, dk, dv. Three launches in stream order (delta, dK/dV, dQ);
-// returns the first launch error (0 = all launched).
+// dO, dq, dk, dv; causal, window and cap as the forward took them. Three
+// launches in stream order (delta, dK/dV, dQ); returns the first launch
+// error (0 = all launched).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const float* lse, const void* dO, float* delta, void* dq, void* dk,
     void* dv, int64_t B, int64_t H, int64_t S, int64_t D, int64_t G,
-    int causal, float scale, const int64_t* strides, int dtype,
-    void* stream) {
+    int causal, int window, float cap, float scale, const int64_t* strides,
+    int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Strides st[8];
   for (int i = 0; i < 8; ++i)
@@ -1553,19 +1718,21 @@ extern "C" int flash_attention_bwd_launch(
   switch (D) {
     case 32:
       return launch_bwd_dt<32>(dtype, q, k, v, o, lse, dO, delta, dq, dk, dv,
-                               B, H, S, G, causal, scale, st, s);
+                               B, H, S, G, causal, window, cap, scale, st, s);
     case 64:
       return launch_bwd_dt<64>(dtype, q, k, v, o, lse, dO, delta, dq, dk, dv,
-                               B, H, S, G, causal, scale, st, s);
+                               B, H, S, G, causal, window, cap, scale, st, s);
     case 96:
       return launch_bwd_dt<96>(dtype, q, k, v, o, lse, dO, delta, dq, dk, dv,
-                               B, H, S, G, causal, scale, st, s);
+                               B, H, S, G, causal, window, cap, scale, st, s);
     case 128:
       return launch_bwd_dt<128>(dtype, q, k, v, o, lse, dO, delta, dq, dk,
-                                dv, B, H, S, G, causal, scale, st, s);
+                                dv, B, H, S, G, causal, window, cap, scale,
+                                st, s);
     case 256:
       return launch_bwd_dt<256>(dtype, q, k, v, o, lse, dO, delta, dq, dk,
-                                dv, B, H, S, G, causal, scale, st, s);
+                                dv, B, H, S, G, causal, window, cap, scale,
+                                st, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

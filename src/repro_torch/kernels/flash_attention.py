@@ -4,7 +4,11 @@ its backward.
 CUDA kernels ``csrc/flash_attention.cu``, the port of the Pallas kernel
 ``repro.kernels.flash_attention.flash_attention``: scale 1/sqrt(D), fp32
 running max, denominator and accumulator, causal mask -1e30, key tiles above
-the diagonal skipped, output in q's dtype. The dtype picks the kernel: bf16
+the diagonal skipped, output in q's dtype. Beyond the Pallas kernel, what
+the reference model's attention adds for Gemma-2, Mixtral and Grok-1: a
+sliding ``window`` (key j visible to query i iff j > i - window; tiles
+wholly under it skipped) and a logit ``softcap`` (scores become softcap
+tanh(score / softcap) before the mask), runtime arguments, 0 = off. The dtype picks the kernel: bf16
 runs both products on the tensor cores (wgmma), rounding the probabilities
 to bf16 before the PV product as the model's reference does; f32 runs fp32
 FMAs on the CUDA cores. Both take what the Pallas kernel does not: any S
@@ -44,12 +48,22 @@ _PLAIN_DTYPES = (*_DTYPES, torch.float64)
 HEAD_DIMS = (32, 64, 96, 128, 256)
 
 
-def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               window: int = 0, softcap: float = 0.0
                ) -> Tuple[int, int, int, int, int]:
     """Validate q (B,H,S,D) and k, v (B,K,S,D) with K dividing H, one dtype
-    (f32, bf16 or f64), one device, the last dim contiguous; returns
-    (B, H, S, D, H // K). Raises on anything else. Any D and f64: the
-    kernels' head dims and dtypes are checked by ``check_kernel_args``."""
+    (f32, bf16 or f64), one device, the last dim contiguous, an int
+    ``window`` >= 0 and a finite ``softcap`` >= 0; returns (B, H, S, D,
+    H // K). Raises on anything else. Any D and f64: the kernels' head dims
+    and dtypes are checked by ``check_kernel_args``."""
+    if isinstance(window, bool) or not isinstance(window, int) \
+            or not 0 <= window < 2 ** 31:
+        raise ValueError(f"flash_attention: window must be an int >= 0 "
+                         f"(0 = off), got {window!r}")
+    if not (isinstance(softcap, (int, float)) and math.isfinite(softcap)
+            and softcap >= 0):
+        raise ValueError(f"flash_attention: softcap must be a finite number "
+                         f">= 0 (0 = off), got {softcap!r}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention: q, k, v must be (B,H,S,D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -76,11 +90,12 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return B, H, S, D, H // K
 
 
-def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      window: int = 0, softcap: float = 0.0
                       ) -> Tuple[int, int, int, int, int]:
     """``check_args``, then what the kernels add: CUDA tensors in f32 or
     bf16, a head dim in ``HEAD_DIMS`` and a grid the card can launch."""
-    B, H, S, D, G = check_args(q, k, v)
+    B, H, S, D, G = check_args(q, k, v, window, softcap)
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: the kernels take float32 or "
                         f"bfloat16, got {q.dtype}")
@@ -126,8 +141,9 @@ def _seq_major(B: int, S: int, H: int, D: int, like: torch.Tensor
 def _launcher():
     fn = _build.library("flash_attention").flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -136,20 +152,24 @@ def _launcher():
 def _bwd_launcher():
     fn = _build.library("flash_attention").flash_attention_bwd_launch
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 5
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, with_lse: bool = False):
+                    causal: bool = True, with_lse: bool = False,
+                    window: int = 0, softcap: float = 0.0):
     """Launch the kernel on CUDA tensors. Returns (B,H,S,D) in q's dtype,
     a view of a (B,S,H,D) contiguous tensor, so ``out.transpose(1, 2)``
     is the model's seq-major layout without a copy; with ``with_lse`` also
-    the f32 log-sum-exp of each query row's scaled scores, (B,H,S) (else
-    the kernel is given a null pointer and writes none)."""
-    B, H, S, D, G = check_kernel_args(q, k, v)
+    the f32 log-sum-exp of each query row's scaled (capped, masked) scores,
+    (B,H,S) (else the kernel is given a null pointer and writes none).
+    ``window`` > 0: the sliding window; ``softcap`` > 0: the logit softcap
+    (``ref.flash_attention``)."""
+    B, H, S, D, G = check_kernel_args(q, k, v, window, softcap)
     _check_aligned("flash_attention", q, k, v)
     o = _seq_major(B, S, H, D, q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -160,7 +180,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         code = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            o.data_ptr(), None if lse is None
                            else lse.data_ptr(), B, H, S, D, G, int(causal),
-                           1.0 / math.sqrt(D), _strides(q, k, v, o),
+                           window, float(softcap), 1.0 / math.sqrt(D),
+                           _strides(q, k, v, o),
                            _DTYPES[q.dtype], _build.stream_ptr(q))
     _build.check_launch("flash_attention", code)
     flash_attention.launches += 1
@@ -170,11 +191,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
-def check_bwd_args(q, k, v, o, lse, do) -> Tuple[int, int, int, int, int]:
-    """Validate the backward's inputs: q, k, v as the kernel forward takes
-    them, o and do (B,H,S,D) in q's dtype with the head dim contiguous, lse
-    (B,H,S) f32 contiguous (f64 for f64 q), all on one device."""
-    B, H, S, D, G = check_args(q, k, v)
+def check_bwd_args(q, k, v, o, lse, do, window: int = 0,
+                   softcap: float = 0.0) -> Tuple[int, int, int, int, int]:
+    """Validate the backward's inputs: q, k, v, window and softcap as the
+    forward takes them, o and do (B,H,S,D) in q's dtype with the head dim
+    contiguous, lse (B,H,S) f32 contiguous (f64 for f64 q), all on one
+    device."""
+    B, H, S, D, G = check_args(q, k, v, window, softcap)
     for name, t in (("o", o), ("do", do)):
         if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype:
             raise ValueError(f"flash_attention_bwd: {name} must be "
@@ -196,17 +219,19 @@ def check_bwd_args(q, k, v, o, lse, do) -> Tuple[int, int, int, int, int]:
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        causal: bool = True
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of ``flash_attention`` for the output
-    gradient ``do``, from the forward's ``o`` and ``lse``: three launches on
+    gradient ``do``, from the forward's ``o`` and ``lse`` (with the same
+    ``causal``, ``window`` and ``softcap``): three launches on
     CUDA tensors, in q's dtype, each a view of a seq-major contiguous
     tensor as the forward's output is. bf16 runs dK/dV and dQ on the
     tensor cores, rounding P and dS to bf16 before their products (f32
     scores, delta and sums): q, k, v, o and do must be 16-byte aligned as
     for the bf16 forward. f32 runs them on the CUDA cores in f32."""
-    check_kernel_args(q, k, v)
-    B, H, S, D, G = check_bwd_args(q, k, v, o, lse, do)
+    check_kernel_args(q, k, v, window, softcap)
+    B, H, S, D, G = check_bwd_args(q, k, v, o, lse, do, window, softcap)
     _check_aligned("flash_attention_bwd", q, k, v, o, do)
     dq = _seq_major(B, S, H, D, q)
     dk = _seq_major(B, S, H // G, D, q)
@@ -219,7 +244,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, H, S, D, G, int(causal),
-            1.0 / math.sqrt(D), _strides(q, k, v, o, do, dq, dk, dv),
+            window, float(softcap), 1.0 / math.sqrt(D),
+            _strides(q, k, v, o, do, dq, dk, dv),
             _DTYPES[q.dtype], _build.stream_ptr(q))
     _build.check_launch("flash_attention", code)
     flash_attention_bwd.launches += 1
@@ -237,10 +263,12 @@ class FlashAttention(torch.autograd.Function):
     copied first."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
-        o, lse = flash_attention(q, k, v, causal, with_lse=True)
+    def forward(ctx, q, k, v, causal: bool, window: int = 0,
+                softcap: float = 0.0):
+        o, lse = flash_attention(q, k, v, causal, with_lse=True,
+                                 window=window, softcap=softcap)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
         return o
 
     @staticmethod
@@ -248,5 +276,6 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do.stride(-1) != 1 or _misaligned(do):
             do = do.contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
+                                         ctx.window, ctx.softcap)
+        return dq, dk, dv, None, None, None

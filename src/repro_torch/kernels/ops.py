@@ -99,26 +99,33 @@ def quantize_rows(x):
     return ref.quantize_rows(x)
 
 
-def flash_attention(q, k, v, causal: bool = True):
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
     """Attention of q (B,H,S,D) over k, v (B,K,S,D), K dividing H; any S,
-    strided views allowed. Returns (B,H,S,D) in q's dtype. On CUDA under
-    autograd it runs through ``FlashAttention`` (the forward also writes the
-    log-sum-exp the backward reads); otherwise the forward kernel alone."""
+    strided views allowed; ``window`` > 0 a sliding window, ``softcap`` > 0
+    the logit softcap (0 = off). Returns (B,H,S,D) in q's dtype. On CUDA
+    under autograd it runs through ``FlashAttention`` (the forward also
+    writes the log-sum-exp the backward reads); otherwise the forward kernel
+    alone."""
     if _on_cuda(q):
         if _needs_graph(q, k, v):
-            return _fa.FlashAttention.apply(q, k, v, causal)
-        return _fa.flash_attention(q, k, v, causal)
-    _fa.check_args(q, k, v)
-    return ref.flash_attention(q, k, v, causal)
+            return _fa.FlashAttention.apply(q, k, v, causal, window, softcap)
+        return _fa.flash_attention(q, k, v, causal, window=window,
+                                   softcap=softcap)
+    _fa.check_args(q, k, v, window, softcap)
+    return ref.flash_attention(q, k, v, causal, window, softcap)
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0):
     """(dq, dk, dv) of ``flash_attention`` from its output ``o``, the
     log-sum-exp ``lse`` (B,H,S) f32 and the output gradient ``do``."""
     if _on_cuda(q):
-        return _fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
-    _fa.check_bwd_args(q, k, v, o, lse, do)
-    return ref.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        return _fa.flash_attention_bwd(q, k, v, o, lse, do, causal, window,
+                                       softcap)
+    _fa.check_bwd_args(q, k, v, o, lse, do, window, softcap)
+    return ref.flash_attention_bwd(q, k, v, o, lse, do, causal, window,
+                                   softcap)
 
 
 def ssd_chunk_scan(states, decay):

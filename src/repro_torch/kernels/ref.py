@@ -90,64 +90,108 @@ def _acc(t: torch.Tensor) -> torch.dtype:
     return torch.promote_types(t.dtype, torch.float32)
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+def _capped(q: torch.Tensor, k: torch.Tensor, softcap: float = 0.0
+            ) -> torch.Tensor:
     """Scaled scores of q (B,H,S,D) against k (B,K,S,D) in ``_acc``, kv head
-    h // (H/K) for query head h, masked above the diagonal with NEG_INF."""
-    B, H, S, D = q.shape
+    h // (H/K) for query head h, with the logit softcap ``softcap *
+    tanh(score / softcap)`` if ``softcap`` > 0 (the reference's
+    ``_softcap``); no mask."""
+    D = q.shape[-1]
     dt = _acc(q)
-    kf = k.to(dt).repeat_interleave(H // k.shape[1], dim=1)
+    kf = k.to(dt).repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     scores = torch.matmul(q.to(dt), kf.transpose(-1, -2)) * (1.0 / math.sqrt(D))
-    if causal:
-        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~mask, NEG_INF)
+    if softcap > 0:
+        scores = softcap * torch.tanh(scores / softcap)
     return scores
 
 
+def visible(S: int, causal: bool, window: int = 0, device=None
+            ) -> torch.Tensor:
+    """(S, S) bool, query row i sees key j: j <= i if causal, and with a
+    sliding window also j > i - window (the reference's local-layer mask,
+    ``src/repro/models/layers.py:184-191``); all True otherwise."""
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(S, device=device)[None, :]
+    ok = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        ok = ok & (kpos <= qpos)
+    if window > 0:
+        ok = ok & (kpos > qpos - window)
+    return ok
+
+
+def _masked(scores: torch.Tensor, causal: bool, window: int
+            ) -> torch.Tensor:
+    """(..., S, S) scores set to NEG_INF where ``visible`` is False."""
+    if not (causal or window > 0):
+        return scores
+    S = scores.shape[-1]
+    return scores.masked_fill(~visible(S, causal, window, scores.device),
+                              NEG_INF)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int = 0,
+            softcap: float = 0.0) -> torch.Tensor:
+    """``_capped`` scores, masked with NEG_INF where ``visible`` is False."""
+    return _masked(_capped(q, k, softcap), causal, window)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
     """Attention of q (B,H,S,D) over k, v (B,K,S,D), K dividing H (query
     head h reads kv head h // (H/K)); any strides, any D. Scores, softmax and
-    the probability-weighted sum of v all in fp32 (f64 for f64 inputs),
-    scale 1/sqrt(D), causal mask ``NEG_INF``; output (B,H,S,D) in q's dtype,
-    as the kernel computes it (the kernel's online softmax reaches the same
-    sums in another order)."""
+    the probability-weighted sum of v all in fp32 (f64 for f64 inputs), in
+    the reference's order: scale 1/sqrt(D), the softcap ``softcap *
+    tanh(s / softcap)`` if ``softcap`` > 0, then the causal mask and, if
+    ``window`` > 0, the sliding window (``visible``) with ``NEG_INF``, then
+    the softmax; output (B,H,S,D) in q's dtype, as the kernel computes it
+    (the kernel's online softmax reaches the same sums in another order)."""
     G = q.shape[1] // k.shape[1]
-    probs = torch.softmax(_scores(q, k, causal), dim=-1)
+    probs = torch.softmax(_scores(q, k, causal, window, softcap), dim=-1)
     vf = v.to(probs.dtype).repeat_interleave(G, dim=1)
     return torch.matmul(probs, vf).to(q.dtype)
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
-    """The log-sum-exp of each query row's scaled scores, (B,H,S), what the
-    kernel's forward writes for the backward (f32; f64 for f64 inputs)."""
-    return torch.logsumexp(_scores(q, k, causal), dim=-1)
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """The log-sum-exp of each query row's scaled (capped, masked) scores,
+    (B,H,S), what the kernel's forward writes for the backward (f32; f64 for
+    f64 inputs)."""
+    return torch.logsumexp(_scores(q, k, causal, window, softcap), dim=-1)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        causal: bool = True
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of ``flash_attention`` for the output
     gradient ``do``, step by step as the kernels compute them (not
     autograd), in fp32 (f64 for f64 inputs), returned in q's dtype:
 
-        P = exp(scale q k^T - lse)      (0 above the diagonal)
+        Sc = cap tanh(scale q k^T / cap)   (scale q k^T without a cap)
+        P = exp(Sc - lse)      (0 where the key is not visible)
         dV = P^T dO,  dP = dO V^T,  delta = rowsum(dO o O)
-        dS = P o (dP - delta),  dQ = scale dS K,  dK = scale dS^T Q
+        dS = P o (dP - delta) o f,  dQ = scale dS K,  dK = scale dS^T Q
 
-    dK and dV summed over the query heads of each kv head's group."""
+    f = 1 - (Sc / cap)^2 = 1 - tanh^2, the softcap's derivative (1 without
+    one). dK and dV summed over the query heads of each kv head's group."""
     B, H, S, D = q.shape
     K = k.shape[1]
     G = H // K
     dt = _acc(q)
     scale = 1.0 / math.sqrt(D)
-    p = torch.exp(_scores(q, k, causal) - lse.to(dt)[..., None])
+    sc = _capped(q, k, softcap)
+    p = torch.exp(_masked(sc, causal, window) - lse.to(dt)[..., None])
     dof = do.to(dt)
     kf = k.to(dt).repeat_interleave(G, dim=1)
     vf = v.to(dt).repeat_interleave(G, dim=1)
     delta = (dof * o.to(dt)).sum(-1, keepdim=True)
     ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    if softcap > 0:
+        ds = ds * (1 - (sc / softcap) ** 2)
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q.to(dt)) * scale
     dv = torch.matmul(p.transpose(-1, -2), dof)
@@ -156,31 +200,43 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+# The kernels' tanh against torch's: tanhf is within 2 ulps of tanh, and the
+# kernels form its argument as score * (scale / cap) where the reference
+# divides (one rounding more); 4 ulps of a value at most 1 cover both, so
+# a capped score is off by at most cap * TANH_ERR and each probability, taken
+# relative to its row's sum, by at most 2 cap TANH_ERR relative
+TANH_ERR = 2.0 ** -21
+
+
 def flash_bwd_limit(want: Tuple[torch.Tensor, ...], q: torch.Tensor,
                     k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                     lse: torch.Tensor, do: torch.Tensor, causal: bool,
-                    tol: float, bf16: bool) -> Tuple[torch.Tensor, ...]:
+                    tol: float, bf16: bool, window: int = 0,
+                    softcap: float = 0.0) -> Tuple[torch.Tensor, ...]:
     """Element-by-element bounds on |got - want| for the kernel backward's
     (dq, dk, dv) against ``want``, ``flash_attention_bwd`` in f32 on the
     same (upcast) inputs:
 
         tol (1 + M) [+ 2^-8 (|want| + M) for bf16]
+                    [+ (2 cap + 2) TANH_ERR M with a softcap]
 
     M is each gradient's magnitude, the same sums taken over the absolute
-    values of their terms (P, |dO| |V|^T + rowsum|dO o O|, |Q|, |K|): the
-    f32 sums of the kernels and of the plain version round in other orders,
-    and a sum's rounding error is bounded by its terms' magnitude, not by
-    its value (dS cancels in dP - delta). The bf16 kernels read their
-    inputs exactly and compute S, dP, delta and every sum in f32, but
-    round P and dS to bf16 (each at most 2^-9 relative) as the operands of
-    the dV, dK and dQ products, which moves each sum by at most 2^-9 M,
-    and round each output (2^-9 |want|); 2^-8 covers both with a factor
-    two to spare."""
+    values of their terms (P, |dO| |V|^T + rowsum|dO o O|, |Q|, |K|; the
+    softcap's factor f <= 1 left out): the f32 sums of the kernels and of
+    the plain version round in other orders, and a sum's rounding error is
+    bounded by its terms' magnitude, not by its value (dS cancels in dP -
+    delta). The bf16 kernels read their inputs exactly and compute S, dP,
+    delta and every sum in f32, but round P and dS to bf16 (each at most
+    2^-9 relative) as the operands of the dV, dK and dQ products, which
+    moves each sum by at most 2^-9 M, and round each output (2^-9 |want|);
+    2^-8 covers both with a factor two to spare. With a softcap the
+    kernels' tanh moves each P by at most 2 cap TANH_ERR relative and f by
+    at most 2 TANH_ERR absolute."""
     B, H, S, D = q.shape
     K = k.shape[1]
     G = H // K
     scale = 1.0 / math.sqrt(D)
-    p = torch.exp(_scores(q.float(), k.float(), causal)
+    p = torch.exp(_scores(q.float(), k.float(), causal, window, softcap)
                   - lse.float()[..., None])
     da = do.float().abs()
     ka = k.float().abs().repeat_interleave(G, dim=1)
@@ -192,8 +248,9 @@ def flash_bwd_limit(want: Tuple[torch.Tensor, ...], q: torch.Tensor,
             .reshape(B, K, G, S, D).sum(2),
             torch.matmul(p.transpose(-1, -2), da).reshape(B, K, G, S, D)
             .sum(2))
-    return tuple(tol * (1 + m) + (BF16_ULP * (w.float().abs() + m)
-                                  if bf16 else 0)
+    tanh = (2 * softcap + 2) * TANH_ERR if softcap > 0 else 0.0
+    return tuple(tol * (1 + m) + tanh * m
+                 + (BF16_ULP * (w.float().abs() + m) if bf16 else 0)
                  for m, w in zip(mags, want))
 
 
@@ -201,21 +258,44 @@ BF16_ULP = 2.0 ** -8    # a bf16 ulp relative to the value (8 mantissa bits)
 
 
 def flash_bf16_limit(want: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor, causal: bool, tol: float
-                     ) -> torch.Tensor:
+                     v: torch.Tensor, causal: bool, tol: float,
+                     window: int = 0, softcap: float = 0.0) -> torch.Tensor:
     """Element-by-element bound on |got - want| for a bf16 attention
     ``got`` against ``want``, the plain f32 ``flash_attention`` of the same
     (upcast) q, k, v:
 
         tol (1 + |want|) + 2^-8 |want| + 2^-8 A(q, k, |v|)
+                         [+ 2 cap TANH_ERR A(q, k, |v|) with a softcap]
 
     ``tol`` covers the other order of the fp32 sums; 2^-8 |want| and
     2^-8 A(q, k, |v|), A the plain f32 attention applied to |v|, cover
     the three roundings to bf16 (each at most 2^-9 relative): the
     probabilities before the PV product, as the model's reference rounds
-    them, the denominator they are taken against, and the output."""
-    a = flash_attention(q.float(), k.float(), v.float().abs(), causal)
-    return tol * (1 + want.abs()) + BF16_ULP * (want.abs() + a)
+    them, the denominator they are taken against, and the output; the
+    last term the kernel's tanh (``flash_limit``)."""
+    a = flash_attention(q.float(), k.float(), v.float().abs(), causal,
+                        window, softcap)
+    return tol * (1 + want.abs()) + BF16_ULP * (want.abs() + a) + (
+        2 * softcap * TANH_ERR * a if softcap > 0 else 0)
+
+
+def flash_limit(want: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, causal: bool, tol: float, window: int = 0,
+                softcap: float = 0.0) -> torch.Tensor:
+    """Element-by-element bound on |got - want| for an f32 attention
+    ``got`` against the plain ``want`` on the same inputs:
+
+        tol (1 + |want|) [+ 2 cap TANH_ERR A(q, k, |v|) with a softcap]
+
+    ``tol`` for the other order of the sums; with a softcap, each capped
+    score of the kernel is off by at most cap TANH_ERR, which moves each
+    probability (relative to its row) by at most 2 cap TANH_ERR and so the
+    output by at most that times A, the attention applied to |v|."""
+    lim = tol * (1 + want.abs())
+    if softcap > 0:
+        lim = lim + 2 * softcap * TANH_ERR * flash_attention(
+            q.float(), k.float(), v.float().abs(), causal, window, softcap)
+    return lim
 
 
 def ssd_chunk_scan(states: torch.Tensor, decay: torch.Tensor) -> torch.Tensor:

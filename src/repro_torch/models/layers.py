@@ -7,14 +7,16 @@ the SSD accumulation run in fp32, rounding where the reference rounds.
 
 The causal prefill attention is one ``kernels.ops.flash_attention`` call
 over the whole sequence (the reference's block-triangular ``q_block`` loop
-is what that kernel computes); the SSD prefill's inter-chunk state pass is
+is what that kernel computes), its sliding window and logit softcap
+included; the SSD prefill's inter-chunk state pass is
 ``kernels.ops.ssd_chunk_scan`` (the reference computes it with a segsum
-einsum). Decode runs neither kernel, as in the reference.
+einsum). Decode runs neither kernel, as in the reference. The MoE layer's
+products are torch products, as the reference leaves them to XLA.
 
 Not ported (``lm.check_ported`` or the stubs here raise
-``NotImplementedError``): MoE, cross-attention, layernorm, attention logit
-softcaps, sliding windows, qk-norm, GeLU and ungated MLPs (ROADMAP.md,
-Queue 1: "remaining LM modules"). Nothing runs a plain stand-in for them.
+``NotImplementedError``): cross-attention, layernorm, qk-norm and ungated
+MLPs (ROADMAP.md, Queue 1: "remaining LM modules"). Nothing runs a plain
+stand-in for them.
 """
 from __future__ import annotations
 
@@ -100,12 +102,17 @@ def attn_param_defs(cfg: ModelConfig, layer_dim: Tuple[int, ...] = ()) -> Dict:
     }
 
 
-def check_attention(cfg: ModelConfig, is_local: bool = False) -> None:
-    """Raise for the attention variants the port does not run."""
-    if cfg.attn_logit_softcap > 0:
-        unported("attention logit softcap")
-    if is_local and cfg.sliding_window:
-        unported("sliding-window attention")
+def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
+    """``cap * tanh(scores / cap)``, or the scores as they are for cap 0."""
+    if cap <= 0:
+        return scores
+    return cap * torch.tanh(scores / cap)
+
+
+def window_of(cfg: ModelConfig, is_local: bool) -> int:
+    """The sliding window of a sublayer: the config's on local layers, 0
+    (none) elsewhere."""
+    return cfg.sliding_window if (is_local and cfg.sliding_window) else 0
 
 
 def _group_q(q: torch.Tensor, num_kv: int) -> torch.Tensor:
@@ -126,10 +133,11 @@ def _qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     return q, k, v
 
 
-def _sdpa_block(q, k, v, mask, scale: float, bf16_chain: bool = False):
+def _sdpa_block(q, k, v, mask, softcap: float, scale: float,
+                bf16_chain: bool = False):
     """Decode attention tile, grouped-query form, as the reference's
-    ``_sdpa_block`` (softcap 0): fp32 QK scores, softmax, probabilities
-    rounded to q's dtype before the PV product.
+    ``_sdpa_block``: fp32 QK scores, the softcap, the mask, softmax,
+    probabilities rounded to q's dtype before the PV product.
 
     q: (B,T,K,G,hd); k/v: (B,L,K,hd); mask broadcastable to (B,K,G,T,L)."""
     B, T, K, G, hd = q.shape
@@ -137,7 +145,7 @@ def _sdpa_block(q, k, v, mask, scale: float, bf16_chain: bool = False):
     qf = q.permute(0, 2, 3, 1, 4).reshape(B, K, G * T, hd)
     kf = k.permute(0, 2, 1, 3)                                   # (B,K,L,hd)
     scores = torch.matmul(qf.to(f32), kf.to(f32).transpose(-1, -2)) * scale
-    scores = scores.reshape(B, K, G, T, L)
+    scores = _softcap(scores.reshape(B, K, G, T, L), softcap)
     if bf16_chain:
         # subtract the fp32 row max first, then drop to bf16
         m = (torch.amax(scores.masked_fill(~mask, -math.inf), dim=-1,
@@ -162,13 +170,16 @@ def attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
               positions: torch.Tensor, *, is_local: bool = False,
               causal: bool = True) -> torch.Tensor:
     """Train / prefill attention: one flash-attention call over the whole
-    sequence, reading the seq-major projections through strides."""
-    check_attention(cfg, is_local)
+    sequence, reading the seq-major projections through strides; local
+    layers pass the config's sliding window, every layer its logit softcap
+    (the reference's mask and ``_softcap``, ``layers.py:174-191``)."""
     B, S, _ = x.shape
     H = cfg.num_heads
     q, k, v = _qkv(cfg, p, x, positions)
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal)         # (B,H,S,hd)
+                              v.transpose(1, 2), causal,
+                              window_of(cfg, is_local),
+                              cfg.attn_logit_softcap)            # (B,H,S,hd)
     out = out.transpose(1, 2).reshape(B, S, H * cfg.head_dim)
     return out @ p["wo"]
 
@@ -181,9 +192,11 @@ def attention_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     (B,). The cache (and the INT8 cache's scales) are updated in place;
     returns (out, cache_k, cache_v, scales).
 
-    ``ring=True``: the cache is a ring buffer (slot = position % S_len),
-    K/V stored RoPE'd at their absolute position."""
-    check_attention(cfg, is_local)
+    ``ring=True``: the cache is a ring buffer (slot = position % S_len,
+    S_len at most the window), K/V stored RoPE'd at their absolute
+    position, so wrapping needs no re-rotation; the window is implied by
+    S_len. Without a ring, local layers mask keys at or before position -
+    window (the reference's ``layers.py:252-253``)."""
     B = x.shape[0]
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     S_len = cache_k.shape[1]
@@ -217,6 +230,9 @@ def attention_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
         mask = stored >= 0
     else:
         mask = kpos <= position[:, None]
+        window = window_of(cfg, is_local)
+        if window:
+            mask &= kpos > position[:, None] - window
     if scales is not None:
         # dequantized views feed the dots; the persistent cache stays int8
         bf = torch.bfloat16
@@ -225,7 +241,8 @@ def attention_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     else:
         kf, vf = cache_k, cache_v
     out = _sdpa_block(_group_q(q, K), kf, vf, mask[:, None, None, None, :],
-                      1.0 / math.sqrt(hd), bf16_chain=cfg.decode_bf16_scores)
+                      cfg.attn_logit_softcap, 1.0 / math.sqrt(hd),
+                      bf16_chain=cfg.decode_bf16_scores)
     out = out.reshape(B, 1, H * hd) @ p["wo"]
     return out, cache_k, cache_v, scales
 
@@ -241,23 +258,116 @@ def cross_attention(cfg, p, x, enc_k, enc_v):
 def mlp_param_defs(cfg: ModelConfig, layer_dim: Tuple[int, ...] = ()) -> Dict:
     D, Fd = cfg.d_model, cfg.d_ff
     ax = tuple(["layer"] * len(layer_dim))
-    return {
+    d = {
         "norm": ParamDef(layer_dim + (D,), ax + ("embed",), "zeros"),
         "wi_gate": ParamDef(layer_dim + (D, Fd), ax + ("fsdp", "tensor"),
                             "scaled"),
-        "wi_up": ParamDef(layer_dim + (D, Fd), ax + ("fsdp", "tensor"),
-                          "scaled"),
         "wo": ParamDef(layer_dim + (Fd, D), ax + ("tensor", "fsdp"), "scaled"),
     }
+    if cfg.mlp_gated:
+        d["wi_up"] = ParamDef(layer_dim + (D, Fd), ax + ("fsdp", "tensor"),
+                              "scaled")
+    return d
+
+
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """SiLU, or GeLU in its tanh form: ``jax.nn.gelu``, which the reference
+    calls, defaults to ``approximate=True`` (``torch``'s to the erf
+    form)."""
+    return F.gelu(x, approximate="tanh") if kind == "gelu" else F.silu(x)
 
 
 def mlp(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Gated SiLU MLP (SwiGLU)."""
-    return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+    """Gated MLP: SwiGLU, or GeGLU for ``act="gelu"``."""
+    return (_act(x @ p["wi_gate"], cfg.act) * (x @ p["wi_up"])) @ p["wo"]
 
 
-def moe(cfg, p, x):
-    unported("mixture-of-experts")
+def moe_param_defs(cfg: ModelConfig, layer_dim: Tuple[int, ...] = ()) -> Dict:
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    ax = tuple(["layer"] * len(layer_dim))
+    return {
+        "norm": ParamDef(layer_dim + (D,), ax + ("embed",), "zeros"),
+        "router": ParamDef(layer_dim + (D, E), ax + ("fsdp", None), "scaled"),
+        "we_gate": ParamDef(layer_dim + (E, D, Fd),
+                            ax + ("expert", "fsdp", "tensor"), "scaled"),
+        "we_up": ParamDef(layer_dim + (E, D, Fd),
+                          ax + ("expert", "fsdp", "tensor"), "scaled"),
+        "we_down": ParamDef(layer_dim + (E, Fd, D),
+                            ax + ("expert", "tensor", "fsdp"), "scaled"),
+    }
+
+
+def moe_capacity(cfg: ModelConfig, T: int) -> int:
+    """Slots per expert for T tokens: ``ceil(T topk cf / E)``. It depends
+    on the batch, as in the reference: a decode step of B tokens has
+    C = ceil(2.5 B / 8) at Mixtral's 8 experts, top-2, cf 1.25, so which
+    tokens drop depends on who shares the batch."""
+    return max(1, int(math.ceil(T * cfg.experts_per_token
+                                * cfg.capacity_factor / cfg.num_experts)))
+
+
+def moe_route(cfg: ModelConfig, logits: torch.Tensor):
+    """The reference's routing of T tokens, index for index, from their
+    router logits (T, E) in fp32: (probs (T,E), gates (T,topk), expert
+    indices (T,topk), slots (T*topk,), capacity C).
+
+    ``lax.top_k`` orders equal probabilities by the lower expert index;
+    ``torch.topk`` promises no order, so the experts come from a stable
+    descending sort. Bf16 router products make exact ties among the
+    experts happen. The assignments are flattened token-major (token t's
+    k-th choice at t*topk + k) and each takes the next free slot of its
+    expert (an exclusive cumulative count): the order in which a token
+    lists its experts decides which tokens find their expert full, and an
+    assignment whose slot is C or more is dropped."""
+    E, topk = cfg.num_experts, cfg.experts_per_token
+    T = logits.shape[0]
+    probs = torch.softmax(logits, dim=-1)
+    sorted_p, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, eidx = sorted_p[:, :topk], order[:, :topk]
+    gates = gates / torch.sum(gates, dim=-1, keepdim=True)
+    # (E, T*topk): the count runs along the contiguous dim (an outer-dim
+    # scan of a (T*topk, E) tensor was 3 ms a layer at T = 8192)
+    onehot = F.one_hot(eidx.reshape(-1), E).t().contiguous()
+    pos = torch.sum((torch.cumsum(onehot, dim=1) - onehot) * onehot, dim=0)
+    return probs, gates, eidx, pos, moe_capacity(cfg, T)
+
+
+def moe(cfg: ModelConfig, p: Dict, x: torch.Tensor
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k token-choice MoE with capacity-bounded index dispatch, the
+    reference's ``moe`` (``layers.py:310-388``): tokens gathered into an
+    (E, C) buffer of slots (``moe_route``; dropped assignments add
+    nothing), batched expert FFNs, gate-weighted, gathered back token-major.
+    Returns (output, Switch load-balance aux loss E * sum_e f_e P_e)."""
+    B, S, D = x.shape
+    E, topk = cfg.num_experts, cfg.experts_per_token
+    T = B * S
+    xf = x.reshape(T, D)
+    ad = acc_dtype(x)
+    logits = (xf @ p["router"]).to(ad)                           # (T,E)
+    probs, gates, eidx, pos, C = moe_route(cfg, logits)
+
+    f_e = torch.mean(torch.sum(F.one_hot(eidx, E).to(ad), dim=1), dim=0)
+    aux = E * torch.sum(f_e * torch.mean(probs, dim=0))
+
+    flat_e = eidx.reshape(-1)
+    flat_g = gates.reshape(-1).to(x.dtype)
+    flat_t = torch.arange(T * topk, device=x.device) // topk
+    keep = pos < C
+    slot = (flat_e[keep], pos[keep])
+    tok_buf = torch.full((E, C), T, dtype=torch.long,
+                         device=x.device).index_put(slot, flat_t[keep])
+    gate_buf = torch.zeros((E, C), dtype=x.dtype,
+                           device=x.device).index_put(slot, flat_g[keep])
+    xpad = torch.cat([xf, xf.new_zeros((1, D))], dim=0)
+    xe = xpad[tok_buf]                                           # (E,C,D)
+    h = (_act(torch.einsum("ecd,edf->ecf", xe, p["we_gate"]), cfg.act)
+         * torch.einsum("ecd,edf->ecf", xe, p["we_up"]))
+    ye = torch.einsum("ecf,efd->ecd", h, p["we_down"]) * gate_buf[..., None]
+    contrib = ye[flat_e, torch.clamp(pos, max=C - 1)]            # (T*topk,D)
+    contrib = torch.where(keep[:, None], contrib, contrib.new_zeros(()))
+    y = torch.sum(contrib.reshape(T, topk, D), dim=1)
+    return y.reshape(B, S, D), aux
 
 
 # ---------------------------------------------------------------------------

@@ -14,12 +14,13 @@ Entry points (functions on tensors, as in the reference):
 The decode cache is a dict of stacked tensors that ``decode_step`` updates
 in place (the reference donates its cache to the jit instead).
 
-Ported sublayers: attention (rope, grouped-query, the INT8 KV cache), the
-gated SiLU MLP and Mamba-2 SSD. What the other architectures add (MoE,
-encoder/cross-attention, image tokens, sinusoidal positions, logit
-softcaps, sliding windows, sandwich norms, embedding scaling, qk-norm,
-GeLU and ungated MLPs) raises ``NotImplementedError`` in ``check_ported``
-(ROADMAP.md, Queue 1).
+Ported sublayers: attention (rope, grouped-query, sliding windows with the
+ring-buffer cache, the attention logit softcap, the INT8 KV cache), the
+gated SiLU and GeLU MLPs, top-k MoE with its aux loss, and Mamba-2 SSD;
+around them sandwich norms, embedding scaling and the final logit
+softcap. What the remaining architectures add (encoder/cross-attention,
+image tokens, sinusoidal positions, qk-norm, ungated MLPs) raises
+``NotImplementedError`` in ``check_ported`` (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -71,23 +72,18 @@ def sublayer_kind(cfg: ModelConfig, j: int) -> Dict[str, bool]:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run."""
-    for present, what in (
-            (cfg.num_experts, "mixture-of-experts"),
-            (cfg.encoder_layers or cfg.cross_attention,
-             "encoder / cross-attention"),
-            (cfg.num_image_tokens, "image-token merging"),
-            (cfg.rope_theta == 0, "sinusoidal positions"),
-            (cfg.final_logit_softcap > 0, "final logit softcap"),
-            (cfg.attn_logit_softcap > 0, "attention logit softcap"),
-            (cfg.sliding_window, "sliding-window attention"),
-            (cfg.sandwich_norm, "sandwich norms"),
-            (cfg.scale_embedding, "embedding scaling"),
-            (cfg.qk_norm, "qk-norm"),
-            (cfg.act != "silu" or not cfg.mlp_gated,
-             f"the {cfg.act} {'gated ' * cfg.mlp_gated}MLP")):
-        if present:
-            L.unported(f"{what} ({cfg.name})")
+    """Raise ``NotImplementedError`` naming every feature of ``cfg`` that
+    the port does not run."""
+    missing = [what for present, what in (
+        (cfg.encoder_layers or cfg.cross_attention,
+         "encoder / cross-attention"),
+        (cfg.num_image_tokens, "image-token merging"),
+        (cfg.rope_theta == 0, "sinusoidal positions"),
+        (cfg.qk_norm, "qk-norm"),
+        (not cfg.mlp_gated, f"the ungated {cfg.act} MLP"))
+        if present]
+    if missing:
+        L.unported(f"{', '.join(missing)} ({cfg.name})")
 
 
 # ---------------------------------------------------------------------------
@@ -102,8 +98,15 @@ def _sublayer_defs(cfg: ModelConfig, j: int, R: int) -> Dict:
         d["attn"] = L.attn_param_defs(cfg, ld)
     if kind["ssm"]:
         d["ssm"] = L.ssm_param_defs(cfg, ld)
-    if kind["mlp"]:
+    if kind["moe"]:
+        d["moe"] = L.moe_param_defs(cfg, ld)
+    elif kind["mlp"]:
         d["mlp"] = L.mlp_param_defs(cfg, ld)
+    if cfg.sandwich_norm:             # post-sublayer norms (gemma2)
+        for key in ("attn", "moe", "mlp"):
+            if key in d:
+                d[key]["post_norm"] = ParamDef(ld + (cfg.d_model,),
+                                               ("layer", "embed"), "zeros")
     return d
 
 
@@ -139,28 +142,64 @@ def _at(tree: Dict, r: int) -> Dict:
 # sublayers (prefill form)
 # ---------------------------------------------------------------------------
 
+def _residual(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+              h: torch.Tensor) -> torch.Tensor:
+    """x + h, h first normed by the sublayer's ``post_norm`` under sandwich
+    norms (gemma2)."""
+    if cfg.sandwich_norm:
+        h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
+    return x + h
+
+
+def _ffn(cfg: ModelConfig, kind: Dict, p: Dict, x: torch.Tensor,
+         aux: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE or MLP half of a sublayer (pre-norm residual); the MoE's aux
+    loss is added to ``aux``."""
+    if kind["moe"]:
+        h, a = L.moe(cfg, p["moe"], L.rmsnorm(x, p["moe"]["norm"],
+                                              cfg.norm_eps))
+        return _residual(cfg, p["moe"], x, h), aux + a
+    if kind["mlp"]:
+        h = L.mlp(cfg, p["mlp"], L.rmsnorm(x, p["mlp"]["norm"], cfg.norm_eps))
+        return _residual(cfg, p["mlp"], x, h), aux
+    return x, aux
+
+
 def _apply_sublayer(cfg: ModelConfig, kind: Dict, p: Dict, x: torch.Tensor,
-                    positions: torch.Tensor) -> torch.Tensor:
-    """Pre-norm residual sublayer."""
+                    positions: torch.Tensor, aux: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm residual sublayer (sandwich norms where configured);
+    returns (x, aux) with the MoE aux loss summed in."""
     if kind["attn"]:
         h = L.rmsnorm(x, p["attn"]["norm"], cfg.norm_eps)
-        x = x + L.attention(cfg, p["attn"], h, positions,
-                            is_local=kind["local"])
+        h = L.attention(cfg, p["attn"], h, positions, is_local=kind["local"])
+        x = _residual(cfg, p["attn"], x, h)
     elif kind["ssm"]:
         h = L.rmsnorm(x, p["ssm"]["norm"], cfg.norm_eps)
         x = x + L.ssd(cfg, p["ssm"], h)
-    if kind["mlp"]:
-        h = L.rmsnorm(x, p["mlp"]["norm"], cfg.norm_eps)
-        x = x + L.mlp(cfg, p["mlp"], h)
+    return _ffn(cfg, kind, p, x, aux)
+
+
+def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    """The embedding rows of ``tokens``, times sqrt(d_model) rounded to the
+    activation dtype if ``scale_embedding`` (gemma2), as the reference
+    multiplies."""
+    x = params["embed"][tokens.to(torch.long)]
+    if cfg.scale_embedding:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
     return x
 
 
 def _unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     """Final norm and head; the product is rounded to the activation dtype
-    before the cast to fp32, as in the reference."""
+    before the cast to fp32, as in the reference; then the final logit
+    softcap, if any."""
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].t() if cfg.tie_embeddings else params["head"]
-    return (x @ head.to(x.dtype)).to(L.acc_dtype(x))
+    logits = (x @ head.to(x.dtype)).to(L.acc_dtype(x))
+    return L._softcap(logits, cfg.final_logit_softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -170,20 +209,22 @@ def _unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward of tokens (B,S) on the parameters' device.
-    Returns (logits fp32 (B,S,V), moe_aux_loss), the aux loss 0 (no MoE)."""
+    Returns (logits fp32 (B,S,V), moe_aux_loss): the MoE layers' aux
+    losses summed and divided by ``num_layers`` (0 without MoE)."""
     check_ported(cfg)
     B, S = tokens.shape
     period = block_period(cfg)
-    x = params["embed"][tokens.to(torch.long)]             # (B,S,D) gather
+    x = _embed(cfg, params, tokens)                        # (B,S,D) gather
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
+    aux = torch.zeros((), dtype=L.acc_dtype(x), device=x.device)
     kinds = [sublayer_kind(cfg, j) for j in range(period)]
     for r in range(num_repeats(cfg)):
         blk = _at(params["blocks"], r)
         for j in range(period):
-            x = _apply_sublayer(cfg, kinds[j], blk[f"blk{j}"], x, positions)
-    return _unembed(cfg, params, x), torch.zeros((), dtype=f32,
-                                                 device=x.device)
+            x, aux = _apply_sublayer(cfg, kinds[j], blk[f"blk{j}"], x,
+                                     positions, aux)
+    return _unembed(cfg, params, x), aux / max(1, cfg.num_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +234,9 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
 def cache_defs(cfg: ModelConfig, batch: int, s_max: int) -> Dict:
     """ParamDef tree of the decode cache: attention sublayers carry (k, v)
     (INT8 with per-(position, head) scales if ``cfg.kv_cache_int8``), SSM
-    sublayers a conv window and the SSD state."""
+    sublayers a conv window and the SSD state. Local layers of a config
+    with ``swa_ring_buffer`` keep min(s_max, window) positions, a ring
+    buffer (``_decode_sublayer``)."""
     check_ported(cfg)
     R, period = num_repeats(cfg), block_period(cfg)
     K, hd = cfg.num_kv_heads, cfg.head_dim
@@ -203,15 +246,18 @@ def cache_defs(cfg: ModelConfig, batch: int, s_max: int) -> Dict:
         kind = sublayer_kind(cfg, j)
         c: Dict = {}
         if kind["attn"]:
+            s_len = s_max
+            if kind["local"] and cfg.swa_ring_buffer and cfg.sliding_window:
+                s_len = min(s_max, cfg.sliding_window)
             axes = ("layer", "batch", "kv_seq", "kv_heads", None)
             cdt = "int8" if cfg.kv_cache_int8 else dt
-            c["k"] = ParamDef((R, batch, s_max, K, hd), axes, "zeros", cdt)
-            c["v"] = ParamDef((R, batch, s_max, K, hd), axes, "zeros", cdt)
+            c["k"] = ParamDef((R, batch, s_len, K, hd), axes, "zeros", cdt)
+            c["v"] = ParamDef((R, batch, s_len, K, hd), axes, "zeros", cdt)
             if cfg.kv_cache_int8:
                 sax = ("layer", "batch", "kv_seq", "kv_heads")
-                c["k_scale"] = ParamDef((R, batch, s_max, K), sax, "zeros",
+                c["k_scale"] = ParamDef((R, batch, s_len, K), sax, "zeros",
                                         dt)
-                c["v_scale"] = ParamDef((R, batch, s_max, K), sax, "zeros",
+                c["v_scale"] = ParamDef((R, batch, s_len, K), sax, "zeros",
                                         dt)
         if kind["ssm"]:
             conv_dim = cfg.d_inner + 2 * cfg.ssm_state
@@ -236,25 +282,28 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 
 def _decode_sublayer(cfg: ModelConfig, kind: Dict, p: Dict, c: Dict,
                      x: torch.Tensor, position: torch.Tensor) -> torch.Tensor:
-    """One sublayer of one decode step; writes its cache ``c`` in place."""
+    """One sublayer of one decode step; writes its cache ``c`` in place.
+    A local layer's cache no longer than the window is a ring buffer (the
+    reference's condition, ``lm.py:333-334``); the MoE's aux loss is
+    dropped, as in the reference's decode."""
     if kind["attn"]:
         h = L.rmsnorm(x, p["attn"]["norm"], cfg.norm_eps)
+        ring = bool(kind["local"] and cfg.swa_ring_buffer
+                    and cfg.sliding_window
+                    and c["k"].shape[1] < cfg.sliding_window + 1)
         scales = ((c["k_scale"], c["v_scale"]) if cfg.kv_cache_int8
                   else None)
         h, _, _, _ = L.attention_decode(cfg, p["attn"], h, c["k"], c["v"],
                                         position, is_local=kind["local"],
-                                        scales=scales)
-        x = x + h
+                                        ring=ring, scales=scales)
+        x = _residual(cfg, p["attn"], x, h)
     elif kind["ssm"]:
         h = L.rmsnorm(x, p["ssm"]["norm"], cfg.norm_eps)
         h, nconv, nssm = L.ssd_decode(cfg, p["ssm"], h, c["conv"], c["ssm"])
         c["conv"].copy_(nconv)
         c["ssm"].copy_(nssm)
         x = x + h
-    if kind["mlp"]:
-        h = L.rmsnorm(x, p["mlp"]["norm"], cfg.norm_eps)
-        x = x + L.mlp(cfg, p["mlp"], h)
-    return x
+    return _ffn(cfg, kind, p, x, x.new_zeros((), dtype=f32))[0]
 
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
@@ -266,7 +315,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     returned for symmetry with the reference."""
     check_ported(cfg)
     period = block_period(cfg)
-    x = params["embed"][tokens.to(torch.long)]
+    x = _embed(cfg, params, tokens)
     kinds = [sublayer_kind(cfg, j) for j in range(period)]
     for r in range(num_repeats(cfg)):
         blk, blk_cache = _at(params["blocks"], r), _at(cache, r)
@@ -296,8 +345,9 @@ def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
 def lm_loss(cfg: ModelConfig, params: Dict, batch: Dict,
             aux_weight: float = 0.01) -> Tuple[torch.Tensor, Dict]:
     """(total loss, {"xent", "moe_aux"}) of a batch {"tokens", "labels"[,
-    "mask"]} of tensors on the parameters' device. The aux loss is 0: MoE
-    is not ported (``check_ported``), nor image tokens or encoder frames."""
+    "mask"]} of tensors on the parameters' device: the cross entropy plus
+    ``aux_weight`` times the MoE aux loss (0 without MoE). Image tokens and
+    encoder frames are not ported (``check_ported``)."""
     logits, aux = forward(cfg, params, batch["tokens"])
     loss = xent_loss(logits, batch["labels"], batch.get("mask"))
     total = loss + aux_weight * aux

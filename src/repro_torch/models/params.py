@@ -60,32 +60,59 @@ def _set(tree: Dict, path, value) -> None:
     tree[path[-1]] = value
 
 
+_CHUNK = 1 << 28      # f32 elements drawn at once on a card
+
+
+def _normal(shape, std: float, dt: torch.dtype,
+            generator: torch.Generator) -> torch.Tensor:
+    """N(0, std^2) in ``dt``, drawn in f32 by ``generator`` on its device.
+    On a card, leaves over _CHUNK elements are drawn in slices of their
+    leading dim, so the f32 draw never holds more than 1 GiB beside the
+    weights (a stacked Yi-34B MLP leaf is 8.8 G elements)."""
+    dev = generator.device
+    n = int(np.prod(shape))
+    if dev.type == "cpu" or n <= _CHUNK or len(shape) < 2:
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=dev).mul_(std).to(dt)
+    t = torch.empty(shape, dtype=dt, device=dev)
+    rows = max(1, _CHUNK // (n // shape[0]))
+    for r in range(0, shape[0], rows):
+        part = t[r:r + rows]
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               dtype=torch.float32, device=dev).mul_(std))
+    return t
+
+
 def materialize(defs, generator: torch.Generator,
                 device: DeviceLike = "cuda") -> Dict:
     """Initialize a ParamDef tree as tensors (same nesting) on ``device``.
 
-    Draws come from ``generator``, a CPU generator, in sorted key order, so
-    one seed gives the same weights on every device."""
+    Draws come from ``generator`` in sorted key order: a CPU generator gives
+    the same weights on every device; a generator on ``device`` (a card)
+    draws there, without the host round trip, which is what makes
+    full-width models of tens of billions of parameters quick to make (its
+    numbers differ from a CPU generator's)."""
     dev = resolve_device(device)
-    if generator.device.type != "cpu":
-        raise ValueError("materialize draws on the CPU: pass a CPU generator")
+    if generator.device.type != "cpu" and generator.device != dev:
+        raise ValueError(f"materialize draws on the CPU or on {dev}: the "
+                         f"generator is on {generator.device}")
+    gdev = generator.device
     out: Dict = {}
     for path, d in _leaves(defs):
         dt = getattr(torch, d.dtype)
         if d.init == "zeros":
-            t = torch.zeros(d.shape, dtype=dt)
+            t = torch.zeros(d.shape, dtype=dt, device=gdev)
         elif d.init == "ones":
-            t = torch.ones(d.shape, dtype=dt)
+            t = torch.ones(d.shape, dtype=dt, device=gdev)
         elif d.init == "arange_neg":   # mamba A_log init: log(1..n)
             t = torch.log(torch.arange(1, d.shape[-1] + 1,
-                                       dtype=torch.float32)).to(dt)
-            t = t * torch.ones(d.shape, dtype=dt)
+                                       dtype=torch.float32)).to(gdev, dt)
+            t = t * torch.ones(d.shape, dtype=dt, device=gdev)
         elif d.init in ("normal", "scaled"):
             fan_in = d.shape[0] if len(d.shape) > 1 else max(1, d.shape[-1])
             std = (d.scale / np.sqrt(fan_in) if d.init == "scaled"
                    else 0.02 * d.scale)
-            t = (torch.randn(d.shape, generator=generator,
-                             dtype=torch.float32) * std).to(dt)
+            t = _normal(d.shape, std, dt, generator)
         else:
             raise ValueError(f"unknown init {d.init!r} at {'.'.join(path)}")
         _set(out, path, t.to(dev))

@@ -133,9 +133,10 @@ class ServeEngine:
                 self.slots[i] = _Slot(req)
 
     def _reset_slot(self, i: int):
-        """Zero slot i's cache rows in place (SSM states are recurrent: a
-        stale state would leak into the next request; attention rows are
-        masked by position, but everything is cleared)."""
+        """Zero slot i's cache rows in place, every leaf: SSM states are
+        recurrent (a stale state would leak into the next request);
+        attention rows, the ring caches of sliding-window layers included,
+        are masked by position, but are cleared all the same."""
         def zero(tree):
             for v in tree.values():
                 if isinstance(v, dict):

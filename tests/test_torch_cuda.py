@@ -779,3 +779,126 @@ def test_lm_step_gradients_on_the_card_match_the_cpu(cuda, full_f32, arch):
         off_card = float((gc - f64[k]).abs().max())
         off_cpu = float((cpu[k] - f64[k]).abs().max())
         assert off_card <= 2 * off_cpu + 1e-4 * gmax, (k, off_card, off_cpu)
+
+
+# ---------------------------------------------------------------------------
+# sliding windows and the logit softcap (Gemma-2, Mixtral, Grok-1)
+# ---------------------------------------------------------------------------
+
+# (D, G) of the configs' attention: DeepSeek (G 1), Mixtral (4), Grok-1 (6),
+# Yi (7) at head dim 128, Gemma-2 (2) at 256
+ARCH_ATTN = [(128, 1), (128, 4), (128, 6), (128, 7), (256, 2)]
+# (window, softcap): Gemma-2's local and global layers, Mixtral's, Grok-1's
+ARCH_MASKS = [(4096, 50.0), (0, 50.0), (4096, 0.0), (0, 30.0)]
+
+
+def _masked_case(cuda, H, K, S, D, dtype, window, cap, seed):
+    """Forward (through ops), its lse and the backward kernel against the
+    plain forward and autograd of it in f32 on the same (upcast) inputs,
+    within the bounds of ref (flash_limit / flash_bf16_limit and
+    flash_bwd_limit, each with its stated tanh term); the backward the same
+    bits on a second call."""
+    q, k, v, o, lse, do = _attn_case(cuda, 1, H, K, S, D, dtype, True, seed)
+    o, lse = flash_attention.flash_attention(q, k, v, True, with_lse=True,
+                                             window=window, softcap=cap)
+    got_o = ops.flash_attention(q, k, v, True, window, cap)
+    assert torch.equal(o, got_o)
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    want = ref.flash_attention(qf, kf, vf, True, window, cap)
+    want.backward(do.float())
+    want = want.detach()
+    if dtype == torch.bfloat16:
+        lim = ref.flash_bf16_limit(want, q, k, v, True, ATTN_TOL, window, cap)
+    else:
+        lim = ref.flash_limit(want, q, k, v, True, ATTN_TOL, window, cap)
+    assert float(((o.float() - want).abs() - lim).max()) <= 0
+    torch.testing.assert_close(lse, ref.flash_attention_lse(
+        q.float(), k.float(), True, window, cap), rtol=1e-5, atol=1e-5)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, True, window, cap)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, True, window, cap)
+    torch.cuda.synchronize()
+    wg = (qf.grad, kf.grad, vf.grad)
+    lims = ref.flash_bwd_limit(wg, q, k, v, o, lse, do, True, ATTN_TOL,
+                               dtype == torch.bfloat16, window, cap)
+    for g, a, w, lm_, t in zip(got, again, wg, lims, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        assert torch.equal(g, a)
+        assert float(((g.float() - w).abs() - lm_).max()) <= 0
+
+
+@pytest.mark.parametrize("D,G", ARCH_ATTN)
+@pytest.mark.parametrize("S", [2048, 4096, 4097, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_window_softcap_at_the_configs_shapes(cuda, D, G, S, dtype):
+    """S below, at and above Gemma-2's and Mixtral's 4096 window, ragged
+    (4097) and twice it; every (window, softcap) pair the configs use."""
+    for i, (window, cap) in enumerate(ARCH_MASKS):
+        _masked_case(cuda, 2 * G, 2, S, D, dtype, window, cap, S + D + G + i)
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 200, 333])
+@pytest.mark.parametrize("D", flash_attention.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_window_tile_edges(cuda, S, D, dtype):
+    """Windows that start and end inside the 64-key tiles and 128-row
+    blocks, a window of one key (each row sees itself alone), and a cap
+    small enough that tanh saturates, at every head dim."""
+    for i, (window, cap) in enumerate([(1, 0.0), (16, 5.0), (64, 0.0),
+                                       (100, 1.0), (129, 30.0)]):
+        _masked_case(cuda, 4, 2, S, D, dtype, window, cap, S * D + i)
+
+
+@pytest.mark.parametrize("D", flash_attention.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_window_past_s_and_no_cap_change_no_bit(cuda, D, dtype):
+    """A window of S or more and a softcap of 0 give the bits of the plain
+    causal kernel, forward, log-sum-exp and backward."""
+    S = 300
+    q, k, v, o, lse, do = _attn_case(cuda, 2, 8, 2, S, D, dtype, True, D)
+    base = ops.flash_attention_bwd(q, k, v, o, lse, do, True)
+    for window in (S, S + 1, 10 * S):
+        o2, lse2 = flash_attention.flash_attention(
+            q, k, v, True, with_lse=True, window=window, softcap=0.0)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        for a, b in zip(base, ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                                      True, window, 0.0)):
+            assert torch.equal(a, b)
+
+
+def test_flash_window_rows_see_only_their_window(cuda):
+    """Changing keys and values outside row t's window leaves row t."""
+    q, k, v = _attn_inputs(_gen(8), 1, 4, 4, 300, 128, torch.float32, cuda)
+    a = ops.flash_attention(q, k, v, True, 50)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, :100] += 5.0                  # keys 0-99: outside rows 149..
+    v2[:, :, :100] -= 5.0
+    b = ops.flash_attention(q, k2, v2, True, 50)
+    assert torch.equal(a[:, :, 149:], b[:, :, 149:])
+    assert not torch.equal(a[:, :, 100:149], b[:, :, 100:149])
+
+
+def test_flash_function_window_softcap_matches_plain_autograd(cuda):
+    """Through ops under autograd (the FlashAttention Function) with
+    Gemma-2's local-layer masks at a small S."""
+    q, k, v = _attn_inputs(_gen(13), 1, 4, 2, 150, 256, torch.float32, cuda,
+                           seq_major=True)
+    r = torch.randn(1, 4, 150, 256, generator=_gen(14)).to(cuda)
+    a = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    y = ops.flash_attention(*a, True, 40, 50.0)
+    assert type(y.grad_fn).__name__ == "FlashAttentionBackward"
+    (y * r).sum().backward()
+    b = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    (ref.flash_attention(*b, True, 40, 50.0) * r).sum().backward()
+    for ta, tb in zip(a, b):
+        scale = float(tb.grad.abs().max())
+        assert float((ta.grad - tb.grad).abs().max()) <= 1e-4 * scale
+
+
+def test_flash_refuses_bad_window_and_softcap(cuda):
+    q = torch.randn(1, 4, 16, 64, device=cuda)
+    for bad in (-1, 2.0, True):
+        with pytest.raises(ValueError, match="window"):
+            flash_attention.flash_attention(q, q, q, window=bad)
+    for bad in (-1.0, float("inf"), float("nan")):
+        with pytest.raises(ValueError, match="softcap"):
+            flash_attention.flash_attention(q, q, q, softcap=bad)

@@ -195,10 +195,11 @@ def test_cuda_branch_runs_lm_kernels_through_their_function(monkeypatch,
     from repro_torch.kernels import ssd_scan as sc
     reached = []
 
-    def fwd(q, k, v, causal=True, with_lse=False):
+    def fwd(q, k, v, causal=True, with_lse=False, window=0, softcap=0.0):
         reached.append(("flash_attention", with_lse))
-        o = ref.flash_attention(q, k, v, causal)
-        return (o, ref.flash_attention_lse(q, k, causal)) if with_lse else o
+        o = ref.flash_attention(q, k, v, causal, window, softcap)
+        return ((o, ref.flash_attention_lse(q, k, causal, window, softcap))
+                if with_lse else o)
 
     def scan(states, decay):
         reached.append(("ssd_chunk_scan", None))

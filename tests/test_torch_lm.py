@@ -107,7 +107,10 @@ def test_configs_equal_the_reference(arch):
         assert jlm.block_period(j) == lm.block_period(t)
         assert [jlm.sublayer_kind(j, i) for i in range(4)] == \
             [lm.sublayer_kind(t, i) for i in range(4)]
-    assert tconfigs.LM_ARCHS == ARCHS
+    # the ported LM architectures, in the reference registry's order
+    assert tconfigs.LM_ARCHS == [a for a in jconfigs.LM_ARCHS
+                                 if a in tconfigs._MODULES]
+    assert set(ARCHS) <= set(tconfigs.LM_ARCHS)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -457,7 +460,7 @@ def test_prefill_and_decode_agree_in_the_port():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("gemma2-9b", "softcap"), ("mixtral-8x7b", "mixture-of-experts"),
+    ("whisper-small", "sinusoidal"), ("whisper-small", "ungated"),
     ("whisper-small", "encoder"), ("phi-3-vision-4.2b", "image")])
 def test_unported_model_features_raise(arch, what):
     """Configs of unported architectures, built here from the reference's
@@ -468,8 +471,7 @@ def test_unported_model_features_raise(arch, what):
                  lambda: lm.cache_defs(cfg, 1, 8)):
         with pytest.raises(NotImplementedError, match=what):
             call()
-    for fn in (lambda: L.moe(cfg, {}, None),
-               lambda: L.cross_attention(cfg, {}, None, None, None),
+    for fn in (lambda: L.cross_attention(cfg, {}, None, None, None),
                lambda: L.layernorm(None, None, None, 1e-6)):
         with pytest.raises(NotImplementedError, match="not ported"):
             fn()

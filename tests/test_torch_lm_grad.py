@@ -209,16 +209,18 @@ def plain_launches(monkeypatch):
     launches to their plain versions, counting them."""
     count = {"fwd": 0, "bwd": 0, "scan": 0, "scan_bwd": 0}
 
-    def fwd(q, k, v, causal=True, with_lse=False):
-        fa.check_args(q, k, v)
+    def fwd(q, k, v, causal=True, with_lse=False, window=0, softcap=0.0):
+        fa.check_args(q, k, v, window, softcap)
         count["fwd"] += 1
-        o = ref.flash_attention(q, k, v, causal)
-        return (o, ref.flash_attention_lse(q, k, causal)) if with_lse else o
+        o = ref.flash_attention(q, k, v, causal, window, softcap)
+        return ((o, ref.flash_attention_lse(q, k, causal, window, softcap))
+                if with_lse else o)
 
-    def bwd(q, k, v, o, lse, do, causal=True):
-        fa.check_bwd_args(q, k, v, o, lse, do)
+    def bwd(q, k, v, o, lse, do, causal=True, window=0, softcap=0.0):
+        fa.check_bwd_args(q, k, v, o, lse, do, window, softcap)
         count["bwd"] += 1
-        return ref.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        return ref.flash_attention_bwd(q, k, v, o, lse, do, causal, window,
+                                       softcap)
 
     def scan(states, decay):
         count["scan"] += 1

@@ -69,9 +69,12 @@ def test_training_entry_points_refuse_to_run_without_a_card():
 def test_unported_architectures_raise_keyerror():
     from repro_torch.configs import get_config, get_smoke
     assert get_config("detnet").name == "detnet"
-    assert get_config("llama3.2-1b").name == "llama3.2-1b"
+    for arch in ("llama3.2-1b", "deepseek-7b", "yi-34b", "gemma2-9b",
+                 "mixtral-8x7b", "grok-1-314b"):
+        assert get_config(arch).name == arch
     for get in (get_config, get_smoke):
-        for arch in ("gemma2-9b", "mixtral-8x7b", "whisper-small"):
+        for arch in ("phi-3-vision-4.2b", "whisper-small",
+                     "jamba-1.5-large-398b"):
             with pytest.raises(KeyError, match="not ported"):
                 get(arch)
 

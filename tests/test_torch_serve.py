@@ -1,7 +1,9 @@
 """repro_torch's serving path against repro's: INT8 weight PTQ of the LM
 tree, the continuous-batching engine (twins of tests/test_serve.py, each
 also held token for token to the JAX engine on the same parameters) and the
-serve launcher, on the smoke configs of Llama-3.2-1B and Mamba-2-1.3B."""
+serve launcher, on the smoke configs of Llama-3.2-1B and Mamba-2-1.3B and of
+the ninth slice's DeepSeek-7B, Yi-34B, Gemma-2-9B, Mixtral-8x7B and
+Grok-1-314B (ring caches past the window, MoE decode batches)."""
 import dataclasses
 
 import jax
@@ -59,7 +61,11 @@ def _ar(lo, hi):
     return np.arange(lo, hi, dtype=np.int32)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b"])
+NEW_ARCHS = ["deepseek-7b", "yi-34b", "gemma2-9b", "mixtral-8x7b",
+             "grok-1-314b"]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b", *NEW_ARCHS])
 def test_engine_completes_requests_as_the_reference(arch):
     jcfg, tcfg, jp, tp = _setup(arch)
     reqs = [(u, _ar(1, 5 + u), 4) for u in range(3)]
@@ -68,7 +74,8 @@ def test_engine_completes_requests_as_the_reference(arch):
     assert got == want
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b",
+                                  "deepseek-7b", "yi-34b", "gemma2-9b"])
 def test_continuous_batching_matches_solo(arch):
     """A request's tokens are identical alone or interleaved with another
     (the SSM state is not idempotent), and equal to the reference's."""
@@ -81,6 +88,38 @@ def test_continuous_batching_matches_solo(arch):
                             batch_size=3, max_seq=32)
     assert solo[0] == batched[0]
     assert solo == want_solo and batched == want_b
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "grok-1-314b"])
+def test_moe_batched_decode_matches_the_reference(arch):
+    """A MoE layer's capacity counts the tokens of the whole decode batch
+    (``layers.moe_capacity``: 1 slot an expert at 1 to 3 tokens, 2 at 4),
+    so a request's tokens alone and in a batch may differ, in the
+    reference as much as in the port. What must hold is the reference's
+    batched decode, token for token: three requests interleaved in a batch
+    of 4 (with an idle slot's pad token in the batch) and alone."""
+    jcfg, tcfg, jp, tp = _setup(arch)
+    reqs = [(0, _ar(1, 6), 6), (1, _ar(9, 12), 8), (2, _ar(30, 39), 5)]
+    want, got = _both(jcfg, tcfg, jp, tp, reqs, batch_size=4, max_seq=32)
+    assert sorted(got) == [0, 1, 2] and got == want
+    want1, got1 = _both(jcfg, tcfg, jp, tp, reqs[:1], batch_size=1,
+                        max_seq=32)
+    assert got1 == want1
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "mixtral-8x7b"])
+def test_ring_cache_engine_matches_the_reference(arch):
+    """Requests that run past the smoke window of 16 positions, so that the
+    ring caches of the local layers wrap, in a batch of 2 with a third
+    request refilling a freed slot (``_reset_slot`` zeroes its ring rows):
+    token for token the reference's engine."""
+    jcfg, tcfg, jp, tp = _setup(arch)
+    assert tcfg.swa_ring_buffer and tcfg.sliding_window == 16
+    reqs = [(0, _ar(1, 15), 12), (1, _ar(40, 48), 14), (2, _ar(60, 78), 6)]
+    want, got = _both(jcfg, tcfg, jp, tp, reqs, batch_size=2, max_seq=40)
+    assert sorted(got) == [0, 1, 2] and got == want
+    eng = ServeEngine(tcfg, tp, batch_size=2, max_seq=40, device="cpu")
+    assert eng.cache["blk0"]["k"].shape[2] == 16      # a ring, not 40
 
 
 def test_slot_reuse_no_state_leak():
@@ -186,7 +225,7 @@ def test_quantize_params_picks_the_reference_leaves(arch, dtype):
 # the launcher and the device rule
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b", *NEW_ARCHS])
 def test_serve_launcher_runs_on_the_cpu(arch, capsys):
     done = tserve.main(["--arch", arch, "--requests", "3", "--batch", "2",
                         "--max-new", "4", "--device", "cpu"])

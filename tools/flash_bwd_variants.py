@@ -73,8 +73,9 @@ def build(variants, out_dir):
         fn = ctypes.CDLL(os.path.join(out_dir, f"{name}.so")
                          ).flash_attention_bwd_launch
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 5
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                          ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
         libs[name] = (fn, notes)
     return libs
