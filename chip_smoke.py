@@ -34,7 +34,18 @@ with the kernels' launch counts set to 0 just before it and read just after:
     grok-1-314b (1 layer), the server's MoE dispatches held to the
     reference's algorithm and its tokens to the teacher-forced forward; a
     CPU twin, the ring cache decoded past its 4096-position window, and 5
-    training steps at S=8192 of gemma2-9b and mixtral-8x7b.
+    training steps at S=8192 of gemma2-9b and mixtral-8x7b;
+  * phi-3-vision-4.2b and whisper-small (slice 10, ``encdec_slice``,
+    V1-V4) at full width and depth: the flash kernels at whisper's
+    non-causal encoder shape (1500 frames), its decoder's and phi-3's
+    (D=96, one query head a kv head) against autograd of their plain
+    version; phi-3's prefill with 256 image embeddings (B=2, S=2048) and
+    its server, held to the teacher-forced forward; whisper's
+    encoder-decoder prefill (B=4, 448 tokens over 1500 frames), its
+    batch-1 decode with the cross-attention cache filled from the encoder
+    held to the forward, and its server (a zero cross cache, as the
+    reference's) held to batch-1 decode; one-repeat CPU twins of both;
+    training of both through ``make_lm_step``.
 
 Before each path every kernel of it is held against its plain PyTorch
 version at the path's shapes; after it each kernel is timed beside its plain
@@ -53,7 +64,9 @@ JSON line with the kernels' numbers, and the result line
 {"ok": true, "device": {...}}. The per-shape details go to
 build/chip_smoke.json.
 """
+import contextlib
 import ctypes
+import gc
 import json
 import re
 import statistics
@@ -1734,19 +1747,22 @@ S5_ARCHS, S5_STEPS = ("gemma2-9b", "mixtral-8x7b"), 5
 LIB_ATTN = ("fmha", "pytorch_flash", "efficient_attention", "flash::")
 
 
-def _visible_pairs(S, window):
-    """(q, k) pairs a causal, windowed attention computes: sum over rows of
-    min(q + 1, window) (window 0: the full triangle)."""
+def _visible_pairs(S, window, causal=True):
+    """(q, k) pairs an attention computes: S^2 without the causal mask;
+    causal, the sum over rows of min(q + 1, window) (window 0: the full
+    triangle)."""
+    if not causal:
+        return S * S
     if window <= 0 or window >= S:
         return S * (S + 1) // 2
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def _flash_bounds(B, H, K, S, D, window):
+def _flash_bounds(B, H, K, S, D, window, causal=True):
     """(forward, backward) bounds in ms: operations (4 and 10 B H D per
     visible pair, the bf16 tensor cores) against bytes (q, k, v, o once;
     the backward also dO, dq, dk, dv, lse), the larger of the two."""
-    pairs = B * H * _visible_pairs(S, window)
+    pairs = B * H * _visible_pairs(S, window, causal)
     f_ops = 4 * D * pairs / BF16_OPS_PER_S * 1e3
     b_ops = 10 * D * pairs / BF16_OPS_PER_S * 1e3
     f_bytes = 2 * B * S * D * (2 * H + 2 * K) / HBM_BYTES_PER_S * 1e3
@@ -1877,12 +1893,26 @@ def _serve_recorded(cfg, params, dev):
     return done, secs, steps, routes
 
 
-def _served_vs_forward(cfg, params, done, steps, dev, what):
+def _forward_rows(cfg, params, seq, dev):
+    """The teacher-forced forward's logits over ``seq`` (S,) and its MoE
+    dispatches (``_routed``)."""
+    import torch
+    from repro_torch.models import lm
+    with torch.no_grad():
+        (rows, _), frt = _routed(lm.forward, cfg, params,
+                                 torch.from_numpy(seq)[None].to(dev))
+    return rows[0], frt
+
+
+def _served_vs_forward(cfg, params, done, steps, dev, what,
+                       teacher=_forward_rows, tie=None, least=None):
     """Hold a recorded server run (``_serve_recorded``) to the
-    teacher-forced forward over each request's prompt and served tokens:
-    each served token must be the forward's argmax wherever the forward's
-    top-2 margin is at least S2_TIE[dtype] x max(1, max|logit|) of its
-    request, and at least S2_LEAST of the served tokens must be checked so.
+    teacher-forced forward (or another ``teacher(cfg, params, seq, dev)``
+    giving (logits rows, MoE dispatches)) over each request's prompt and
+    served tokens: each served token must be the forward's argmax wherever
+    the forward's top-2 margin is at least ``tie`` (S2_TIE[dtype]) x
+    max(1, max|logit|) of its request, and at least ``least`` (S2_LEAST)
+    of the served tokens must be checked so.
     With MoE, a request's positions from the first assignment that either
     run dropped at its capacity (the server's is the batch's, so who shares
     the batch decides), or that the two routed otherwise (allowed only at a
@@ -1891,7 +1921,6 @@ def _served_vs_forward(cfg, params, done, steps, dev, what):
     each compared token's margin, agreement and gap."""
     import numpy as np
     import torch
-    from repro_torch.models import lm
     at = {}        # (uid, position) -> (logits row, its dispatch per layer)
     for st in steps:
         for i, (uid, pos) in enumerate(zip(st["uids"], st["pos"])):
@@ -1902,15 +1931,12 @@ def _served_vs_forward(cfg, params, done, steps, dev, what):
     out = {"tokens": 0, "compared": 0, "checked": 0, "max_gap_rel": 0.0,
            "left_out_dropped": 0, "left_out_parted": 0, "parted_ties": [],
            "compared_tokens": []}
-    tie = S2_TIE[cfg.dtype]
+    tie = S2_TIE[cfg.dtype] if tie is None else tie
     for r in done:
         seq = np.concatenate([r.prompt, np.asarray(r.out_tokens[:-1],
                                                    np.int32)])
         first = len(r.prompt) - 1
-        with torch.no_grad():
-            (rows, _), frt = _routed(lm.forward, cfg, params,
-                                     torch.from_numpy(seq)[None].to(dev))
-        rows = rows[0]
+        rows, frt = teacher(cfg, params, seq, dev)
         end, why = len(seq), None          # positions [first, end) compared
         for p in range(len(seq)):
             srv = at[r.uid, p][1]
@@ -1957,11 +1983,110 @@ def _served_vs_forward(cfg, params, done, steps, dev, what):
                 out["checked"] += 1
         out["max_gap_rel"] = max(out["max_gap_rel"], float(gaps.max()))
         out["compared"] += n_cmp
-    least = S2_LEAST[bool(cfg.num_experts)]
+    if least is None:
+        least = S2_LEAST[bool(cfg.num_experts)]
     check(out["checked"] >= least * out["tokens"], f"{what}: only "
           f"{out['checked']} of {out['tokens']} served tokens checked "
           f"against the forward (margins under {tie} x the scale)")
     return out
+
+
+def _max_err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def _qkvo(gen, dev, B, H, K, S, D, dt):
+    """q, o-gradient (B,H,S,D) and k, v (B,K,S,D) drawn from ``gen`` as the
+    transposed views of seq-major (B,S,heads,D) tensors, as the model's
+    projections are."""
+    import torch
+    return tuple(torch.randn(B, S, h, D, generator=gen).to(dev, dt)
+                 .transpose(1, 2) for h in (H, K, K, H))
+
+
+def _bwd_graph(fn, q, k, v, do):
+    """A call that runs autograd of ``fn`` back from ``do`` (its graph
+    built once)."""
+    import torch
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    y = fn(qs, ks, vs)
+    return lambda: torch.autograd.grad(y, (qs, ks, vs), do,
+                                       retain_graph=True)
+
+
+def hold_flash(q, k, v, do, window, cap, what, causal=True):
+    """The kernels' forward (with and without the log-sum-exp) and
+    backward (twice: the same bits) on q, k, v, do against autograd of
+    the plain version, every element within its bound (``ref.
+    flash_limit``, ``flash_bf16_limit`` for bf16; ``flash_bwd_limit``).
+    The plain version takes HOLD_HEADS query heads at a time (heads are
+    independent), so that its S x S scores fit beside the full-size
+    call. Returns o, lse and the errors and margins."""
+    import math
+
+    import torch
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.kernels import ops, ref
+    o, lse = fak.flash_attention(q, k, v, causal, with_lse=True,
+                                 window=window, softcap=cap)
+    o2 = ops.flash_attention(q, k, v, causal, window, cap)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal, window, cap)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal, window, cap)
+    check(torch.equal(o, o2), f"{what}: the forward with and without "
+          "the log-sum-exp differ")
+    for name, g, a in zip("qkv", got, again):
+        check(torch.equal(g, a), f"{what}: d{name} differs in bits "
+              "between two calls")
+    del o2, again
+    bf16 = q.dtype == torch.bfloat16
+    G = q.shape[1] // k.shape[1]
+    n = max(1, HOLD_HEADS // G)             # kv heads a plain call
+    res = {"fwd_max_abs_err": 0.0, "bwd_max_abs_err": 0.0,
+           "lse_max_abs_err": 0.0, "fwd_over": -math.inf,
+           "bwd_over": [-math.inf] * 3}
+    for j in range(0, k.shape[1], n):
+        hq, hk = slice(j * G, (j + n) * G), slice(j, j + n)
+        qs, ks, vs, dos = q[:, hq], k[:, hk], v[:, hk], do[:, hq]
+        qf, kf, vf = (t.detach().float().requires_grad_()
+                      for t in (qs, ks, vs))
+        want = ref.flash_attention(qf, kf, vf, causal, window, cap)
+        want.backward(dos.float())
+        want = want.detach()
+        lim = (ref.flash_bf16_limit if bf16 else ref.flash_limit)(
+            want, qs, ks, vs, causal, FLASH_TOL, window, cap)
+        res["fwd_over"] = max(res["fwd_over"], float(
+            ((o[:, hq].float() - want).abs() - lim).max()))
+        res["fwd_max_abs_err"] = max(res["fwd_max_abs_err"],
+                                     _max_err(o[:, hq], want))
+        del want, lim
+        res["lse_max_abs_err"] = max(res["lse_max_abs_err"], _max_err(
+            lse[:, hq], ref.flash_attention_lse(qs.float(), ks.float(),
+                                                causal, window, cap)))
+        wg = (qf.grad, kf.grad, vf.grad)
+        lims = ref.flash_bwd_limit(wg, qs, ks, vs, o[:, hq], lse[:, hq],
+                                   dos, causal, FLASH_TOL, bf16, window, cap)
+        for i, (g, w, lm_) in enumerate(zip(
+                (got[0][:, hq], got[1][:, hk], got[2][:, hk]), wg, lims)):
+            res["bwd_over"][i] = max(res["bwd_over"][i], float(
+                ((g.float() - w).abs() - lm_).max()))
+            res["bwd_max_abs_err"] = max(res["bwd_max_abs_err"],
+                                         _max_err(g, w))
+        del qf, kf, vf, wg, lims
+    check(res["fwd_over"] <= 0, f"{what}: a forward element is "
+          f"{res['fwd_over']} over its bound")
+    check(res["lse_max_abs_err"] <= FLASH_TOL * (
+        1 + float(lse.abs().max())), f"{what}: log-sum-exp off by "
+        f"{res['lse_max_abs_err']}")
+    for name, x in zip("qkv", res["bwd_over"]):
+        check(x <= 0, f"{what}: a d{name} element is {x} over its bound")
+    return o, lse, res
+
+
+def _held(res):
+    return (f"forward max abs err {res['fwd_max_abs_err']:.3g} (margin "
+            f"{res['fwd_over']:.3g} to its bound), backward "
+            f"{res['bwd_max_abs_err']:.3g} (margins " + ", ".join(
+                f"{x:.3g}" for x in res["bwd_over"]) + ")")
 
 
 def arch_slice(dev, gen, report):
@@ -1973,7 +2098,6 @@ def arch_slice(dev, gen, report):
     windowed flash forward and backward at gemma2's and mixtral's
     shapes."""
     import dataclasses
-    import gc
     import math
 
     import numpy as np
@@ -1989,15 +2113,8 @@ def arch_slice(dev, gen, report):
     from repro_torch.models.params import flatten
     from repro_torch.train import loop
 
-    def max_err(a, b):
-        return float((a.float() - b.float()).abs().max())
-
     def ms(busy):
         return None if busy is None else busy / 1e3
-
-    def qkvo(B, H, K, S, D, dt):
-        return tuple(torch.randn(B, S, h, D, generator=gen).to(dev, dt)
-                     .transpose(1, 2) for h in (H, K, K, H))
 
     def masked_sdpa(window, S):
         mask = ref.visible(S, True, window, dev)
@@ -2006,12 +2123,6 @@ def arch_slice(dev, gen, report):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
         return fn
-
-    def bwd_graph(fn, q, k, v, do):
-        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        y = fn(qs, ks, vs)
-        return lambda: torch.autograd.grad(y, (qs, ks, vs), do,
-                                           retain_graph=True)
 
     def library(window, cap, q, k, v, do=None):
         """(fn, note): the one PyTorch call that computes the kernel's
@@ -2027,82 +2138,12 @@ def arch_slice(dev, gen, report):
             if do is None:
                 fn(q, k, v)
             else:
-                bwd_graph(fn, q, k, v, do)()
+                _bwd_graph(fn, q, k, v, do)()
             torch.cuda.synchronize()
         except Exception as e:      # the yardstick only: the port never calls it
             return None, f"none: flex_attention did not compile ({e!r:.200})"
         return fn, ("torch.nn.attention.flex_attention, compiled, tanh "
                     "score_mod and window block mask")
-
-    def hold(q, k, v, do, window, cap, what):
-        """The kernels' forward (with and without the log-sum-exp) and
-        backward (twice: the same bits) on q, k, v, do against autograd of
-        the plain version, every element within its bound (``ref.
-        flash_limit``, ``flash_bf16_limit`` for bf16; ``flash_bwd_limit``).
-        The plain version takes HOLD_HEADS query heads at a time (heads are
-        independent), so that its S x S scores fit beside the full-size
-        call. Returns o, lse and the errors and margins."""
-        o, lse = fak.flash_attention(q, k, v, True, with_lse=True,
-                                     window=window, softcap=cap)
-        o2 = ops.flash_attention(q, k, v, True, window, cap)
-        got = ops.flash_attention_bwd(q, k, v, o, lse, do, True, window, cap)
-        again = ops.flash_attention_bwd(q, k, v, o, lse, do, True, window,
-                                        cap)
-        check(torch.equal(o, o2), f"{what}: the forward with and without "
-              "the log-sum-exp differ")
-        for name, g, a in zip("qkv", got, again):
-            check(torch.equal(g, a), f"{what}: d{name} differs in bits "
-                  "between two calls")
-        del o2, again
-        bf16 = q.dtype == torch.bfloat16
-        G = q.shape[1] // k.shape[1]
-        n = max(1, HOLD_HEADS // G)             # kv heads a plain call
-        res = {"fwd_max_abs_err": 0.0, "bwd_max_abs_err": 0.0,
-               "lse_max_abs_err": 0.0, "fwd_over": -math.inf,
-               "bwd_over": [-math.inf] * 3}
-        for j in range(0, k.shape[1], n):
-            hq, hk = slice(j * G, (j + n) * G), slice(j, j + n)
-            qs, ks, vs, dos = q[:, hq], k[:, hk], v[:, hk], do[:, hq]
-            qf, kf, vf = (t.detach().float().requires_grad_()
-                          for t in (qs, ks, vs))
-            want = ref.flash_attention(qf, kf, vf, True, window, cap)
-            want.backward(dos.float())
-            want = want.detach()
-            lim = (ref.flash_bf16_limit if bf16 else ref.flash_limit)(
-                want, qs, ks, vs, True, FLASH_TOL, window, cap)
-            res["fwd_over"] = max(res["fwd_over"], float(
-                ((o[:, hq].float() - want).abs() - lim).max()))
-            res["fwd_max_abs_err"] = max(res["fwd_max_abs_err"],
-                                         max_err(o[:, hq], want))
-            del want, lim
-            res["lse_max_abs_err"] = max(res["lse_max_abs_err"], max_err(
-                lse[:, hq], ref.flash_attention_lse(qs.float(), ks.float(),
-                                                    True, window, cap)))
-            wg = (qf.grad, kf.grad, vf.grad)
-            lims = ref.flash_bwd_limit(wg, qs, ks, vs, o[:, hq], lse[:, hq],
-                                       dos, True, FLASH_TOL, bf16, window,
-                                       cap)
-            for i, (g, w, lm_) in enumerate(zip(
-                    (got[0][:, hq], got[1][:, hk], got[2][:, hk]), wg, lims)):
-                res["bwd_over"][i] = max(res["bwd_over"][i], float(
-                    ((g.float() - w).abs() - lm_).max()))
-                res["bwd_max_abs_err"] = max(res["bwd_max_abs_err"],
-                                             max_err(g, w))
-            del qf, kf, vf, wg, lims
-        check(res["fwd_over"] <= 0, f"{what}: a forward element is "
-              f"{res['fwd_over']} over its bound")
-        check(res["lse_max_abs_err"] <= FLASH_TOL * (
-            1 + float(lse.abs().max())), f"{what}: log-sum-exp off by "
-            f"{res['lse_max_abs_err']}")
-        for name, x in zip("qkv", res["bwd_over"]):
-            check(x <= 0, f"{what}: a d{name} element is {x} over its bound")
-        return o, lse, res
-
-    def held(res):
-        return (f"forward max abs err {res['fwd_max_abs_err']:.3g} (margin "
-                f"{res['fwd_over']:.3g} to its bound), backward "
-                f"{res['bwd_max_abs_err']:.3g} (margins " + ", ".join(
-                    f"{x:.3g}" for x in res["bwd_over"]) + ")")
 
     # full-width models of 12-69 GB and S=8192 training: segments that grow
     # in place, so that the earlier slices' cached blocks do not fragment
@@ -2121,10 +2162,11 @@ def arch_slice(dev, gen, report):
         H, K = G * S1_K, S1_K
         for S in S1_S:
             for dt in (torch.bfloat16, torch.float32):
-                q, k, v, do = qkvo(1, H, K, S, D, dt)
+                q, k, v, do = _qkvo(gen, dev, 1, H, K, S, D, dt)
                 what = (f"D={D} H={H} K={K} S={S} window={window} softcap="
                         f"{cap} {str(dt)[6:]}")
-                o, lse, res = hold(q, k, v, do, window, cap, f"S1 flash {what}")
+                o, lse, res = hold_flash(q, k, v, do, window, cap,
+                                         f"S1 flash {what}")
                 row = {"D": D, "H": H, "K": K, "S": S, "window": window,
                        "softcap": cap, "dtype": str(dt)[6:], **res}
                 bf16 = dt == torch.bfloat16
@@ -2157,7 +2199,7 @@ def arch_slice(dev, gen, report):
                     check_bound(f"S1 flash_bwd {what}", {
                         "bwd": row["bwd_device_ms"]}, bb["bound_ms"])
                 s1.append(row)
-                print(f"  S1 flash {what}: {held(res)}" + (
+                print(f"  S1 flash {what}: {_held(res)}" + (
                     "" if not bf16 else
                     "; device fwd " + (
                         "not measured" if row["fwd_device_ms"] is None
@@ -2186,10 +2228,11 @@ def arch_slice(dev, gen, report):
         for H, K, D, window, cap in sorted(kinds):
             what = (f"{arch} B=1 S={ARCH_S} H={H} K={K} D={D} window "
                     f"{window} softcap {cap} bf16")
-            q, k, v, do = qkvo(1, H, K, ARCH_S, D, torch.bfloat16)
-            _, _, res = hold(q, k, v, do, window, cap, f"S1 main path {what}")
+            q, k, v, do = _qkvo(gen, dev, 1, H, K, ARCH_S, D, torch.bfloat16)
+            _, _, res = hold_flash(q, k, v, do, window, cap,
+                                   f"S1 main path {what}")
             main[H, K, D, window, cap] = res
-            print(f"  S1 main path {what}: {held(res)}")
+            print(f"  S1 main path {what}: {_held(res)}")
             del q, k, v, do
             torch.cuda.empty_cache()
     report["s1_main_path"] = [dict(zip(("H", "K", "D", "window", "softcap"),
@@ -2200,7 +2243,7 @@ def arch_slice(dev, gen, report):
     # kernels-line entries at the main path's shapes, with the library call
     entries, lib_note = {}, {}
     for arch, (H, K, D, window, cap) in ARCH_ENTRIES.items():
-        q, k, v, do = qkvo(1, H, K, ARCH_S, D, torch.bfloat16)
+        q, k, v, do = _qkvo(gen, dev, 1, H, K, ARCH_S, D, torch.bfloat16)
         o, lse = fak.flash_attention(q, k, v, True, with_lse=True,
                                      window=window, softcap=cap)
         res = main[H, K, D, window, cap]
@@ -2227,10 +2270,10 @@ def arch_slice(dev, gen, report):
                   c: 1 for c in LT_CNAMES["flash_attention_bwd"]})[0]),
               "max_abs_err": res["bwd_max_abs_err"], **bb}
         if lib is not None:
-            check(max_err(lib(q, k, v), o) <= 5e-2 * max(
+            check(_max_err(lib(q, k, v), o) <= 5e-2 * max(
                 1.0, float(o.float().abs().max())),
                   f"{arch}: the library call disagrees with the kernel")
-            lbwd = bwd_graph(lib, q, k, v, do)
+            lbwd = _bwd_graph(lib, q, k, v, do)
             tf["library_ms"] = median_ms(lib, q, k, v)
             tf["library_device_ms"] = ms(device_us([(lib, (q, k, v))],
                                                    reps=3)[0])
@@ -2257,7 +2300,7 @@ def arch_slice(dev, gen, report):
     # (a failed flex compile can break the next ones in the process); with
     # a softcap its forward only (a flex backward compile per shape)
     for row, what, D, H, K, window, cap in s1_lib:
-        q, k, v, do = qkvo(1, H, K, S1_S[-1], D, torch.bfloat16)
+        q, k, v, do = _qkvo(gen, dev, 1, H, K, S1_S[-1], D, torch.bfloat16)
         fn, note = library(window, cap, q, k, v)
         row["library"] = note + (" (forward only)" if cap else "")
         if fn is not None:
@@ -2265,7 +2308,7 @@ def arch_slice(dev, gen, report):
                                                         reps=2)[0])
         if fn is not None and not cap:
             row["library_bwd_device_ms"] = ms(device_us(
-                [(bwd_graph(fn, q, k, v, do), ())], reps=2)[0])
+                [(_bwd_graph(fn, q, k, v, do), ())], reps=2)[0])
         fb, bb = _flash_bounds(1, H, K, S1_S[-1], D, window)
         check_bound(f"S1 library {what}", {
             "fwd": row.get("library_fwd_device_ms")}, fb["bound_ms"])
@@ -2358,32 +2401,13 @@ def arch_slice(dev, gen, report):
                   "numpy, index for index")
         # one profiled prefill: the flash kernel once per attention layer,
         # no PyTorch attention
-        fp, by_name = wall_profile(
-            lambda c=cfg, p=params, t_=tok: lm.forward(c, p, t_), reps=2,
-            expect={"flash_tc_kernel": n_attn})
-        lib = [n_ for n_ in by_name if any(x in n_ for x in LIB_ATTN)]
-        check(not lib, f"S2 {arch}: PyTorch attention kernels in the "
-              f"prefill: {lib}")
-        busy = fp["device_busy_ms"]
-        if by_name:
-            us = sum(v_ for n_, v_ in by_name.items()
-                     if "flash_tc_kernel" in n_)
-            fp["flash_us_per_launch"] = us / n_attn
-            fp["flash_share"] = us / 1e3 / busy
+        fp = _prefill_profile(
+            lambda c=cfg, p=params, t_=tok: lm.forward(c, p, t_), n_attn,
+            f"S2 {arch} prefill B=1 S={ARCH_S}")
         row["prefill"] = fp
         s2[arch] = row
-        print(f"  S2 {arch} prefill B=1 S={ARCH_S}: wall {fp['wall_ms']:.3f}"
-              " ms, device busy " + ("not measured" if busy is None else
-                                     f"{busy:.3f} ms, idle share "
-                                     f"{fp['idle_share']:.3f}, flash "
-                                     f"{n_attn} launches, "
-                                     f"{fp['flash_us_per_launch']:.1f} us "
-                                     f"each, {100 * fp['flash_share']:.1f}% "
-                                     "of the device time")
-              + f"; server {toks} tokens in {secs:.2f} s "
+        print(f"  S2 {arch} server: {toks} tokens in {secs:.2f} s "
               f"({toks / secs:.1f} tok/s, batch {SERVE_BATCH}, bf16)")
-        for kname, us_ in fp["top_kernels_us"]:
-            print(f"    {us_:9.1f} us  {kname[:90]}")
         if arch in S5_ARCHS:       # its first repeat, for S3 and S4
             R1 = lm.block_period(cfg)
             first[arch] = (dataclasses.replace(
@@ -2657,6 +2681,665 @@ def arch_slice(dev, gen, report):
                 "library_device_ms": t["library_device_ms"],
                 "step_device_ms": None if step_us is None else step_us / 1e3,
                 "library": lib_note[arch]})
+    return out
+
+
+# -- slice 10: phi-3-vision-4.2b and whisper-small --------------------------
+# Both at full width and depth, bf16; weights drawn on the card from a
+# seeded card generator, image embeddings and frames from the script's CPU
+# generator. V1: the flash kernels at the three attention shapes of the
+# new main path, (B, H, K, S, D, causal): whisper's encoder (non-causal over
+# its 1500 frames, ragged for every tile), its decoder (448 positions,
+# Whisper's text context, arXiv:2212.04356), phi-3 (causal, D=96, one query
+# head a kv head) at the prefill's B=2, S=2048
+V_ATTN = {"whisper-small encoder": (4, 12, 12, 1500, 64, False),
+          "whisper-small decoder": (4, 12, 12, 448, 64, True),
+          "phi-3-vision-4.2b": (LM_B, 32, 32, LM_S, 96, True)}
+V_WHISPER_B, V_WHISPER_S = 4, 448
+V_TWIN_S = 300                   # the one-repeat CPU twins, ragged
+# V3: batch-1 decode of whisper with its cross-attention cache filled from
+# encoder_kv, f32, against the forward on the same frames, at all 448
+# positions: at one repeat (one encoder and one decoder layer) the logits
+# within V3_GAP x max(1, max|logit|) (as FULL_GAP holds Llama's full-depth
+# f32 decode); at full depth within that + SENS_K x the forward's own
+# change under a 1e-7 relative change of the embedding, as the twins hold
+# the card to the CPU: the random-init net amplifies rounding with depth,
+# and the decode-vs-forward gap grows with the forward's sensitivity (both
+# printed). At one repeat the first step with a zero cross cache must be
+# off by more than the limit (the frames reach the decoder).
+V3_GAP = 1e-2
+# V4: training through make_lm_step (AdamW, launch/train's cosine schedule
+# at LT_LR): whisper at full depth, (B, S, steps), over 1500 frames a
+# sequence; phi-3 with its 256 image embeddings, cut to V4_PHI_LAYERS of
+# its 32 layers: one step at B=1 S=2048 runs out of the card's memory at
+# 32 and 28 layers and peaks at 49.88 GiB at 16 layers, 73.51 at 24
+# (tools/lm_train_memory.py --expandable-segments, about 3 GiB a layer:
+# weights, gradients, f32 AdamW moments and the update's and clipping's
+# copies), so 20 layers (about 62 GiB) leave room beside what the earlier
+# slices of this process hold
+V4_WHISPER = (8, 448, 10)
+V4_PHI = (1, LM_S, 3)
+V4_PHI_LAYERS = 20
+
+
+@contextlib.contextmanager
+def _attn_tally():
+    """Record each ``models.layers.attention`` call inside the block: its
+    ``causal`` flag and whether autograd is on (each call is one flash
+    launch, and one backward launch when the step's backward runs).
+    Yields the list of (causal, grad enabled)."""
+    import torch
+    from repro_torch.models import layers as L
+    rec, attention = [], L.attention
+
+    def tallied(*args, causal=True, **kw):
+        rec.append((causal, torch.is_grad_enabled()))
+        return attention(*args, causal=causal, **kw)
+    L.attention = tallied
+    try:
+        yield rec
+    finally:
+        L.attention = attention
+
+
+def _zero_cross_decode(cfg, params, seq, dev):
+    """Batch-1 teacher-forced decode over ``seq`` (S,) from a fresh cache,
+    its cross-attention K/V zero as the server's are: (logits rows, no
+    MoE dispatches)."""
+    import torch
+    from repro_torch.models import lm
+    cache = lm.init_cache(cfg, 1, len(seq), dev)
+    rows = []
+    with torch.no_grad():
+        for t, x in enumerate(seq):
+            lg, _ = lm.decode_step(
+                cfg, params, cache,
+                torch.tensor([[int(x)]], dtype=torch.int32, device=dev),
+                torch.tensor([t], dtype=torch.int32, device=dev))
+            rows.append(lg[0])
+    return torch.stack(rows), []
+
+
+def _lm_twin(c1, flat1, tok, extras, dev, what):
+    """A one-repeat model (config ``c1``, its leaves ``flat1`` in f32 on
+    the CPU) on the card against the same on the CPU, as S3 holds it: f32
+    logits within LM_TWIN_TOL x max(1, max|logit|) + SENS_K x the card's
+    change under a 1e-7 relative change of every leaf and input; bf16, the
+    card's median row error from the CPU's f32 logits at most BF16_FACTOR
+    x the CPU's own + BF16_FLOOR. ``extras``: the forward's image
+    embeddings or encoder frames, f32 on the CPU. (S3 changes the
+    embedding alone; whisper's decoder input is its positional rows,
+    O(1) beside embedding rows of 0.02, and its encoder reads only the
+    frames, so the embedding alone would probe neither.) Returns the
+    readings."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.params import flatten, unflatten
+    out, cpu = {}, torch.device("cpu")
+    with torch.no_grad():
+        for dt in ("float32", "bfloat16"):
+            cast = getattr(torch, dt)
+            cd = dataclasses.replace(c1, dtype=dt)
+            for where, d in (("card", dev), ("cpu", cpu)):
+                p = unflatten({k: v.to(d, cast) for k, v in flat1.items()})
+                ex = {k: v.to(d, cast) for k, v in extras.items()}
+                out[dt, where] = lm.forward(cd, p, tok.to(d), **ex)[0][0] \
+                    .float().cpu()
+                if (dt, where) == ("float32", "card"):
+                    out["nudged"] = lm.forward(
+                        cd, unflatten({k: v * (1 + 1e-7) for k, v in
+                                       flatten(p).items()}), tok.to(d),
+                        **{k: v * (1 + 1e-7) for k, v in ex.items()}
+                    )[0][0].cpu()
+                del p, ex
+    want, got = out["float32", "cpu"], out["float32", "card"]
+    sens = float((out["nudged"] - got).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    diff = float((got - want).abs().max())
+    lim = LM_TWIN_TOL * scale + SENS_K * sens
+    f64 = {}
+    if diff > lim:
+        # the CPU's own f32 distance from an f64 evaluation as the
+        # yardstick, as LT3 holds a step (GRAD_K): one repeat of these
+        # random nets reads the repeat count as the fan-in, so its weights
+        # have std 1 and its f32 logits can sit far off f64
+        with torch.no_grad():
+            want64 = lm.forward(
+                dataclasses.replace(c1, dtype="float64"),
+                unflatten({k: v.double() for k, v in flat1.items()}), tok,
+                **{k: v.double() for k, v in extras.items()})[0][0]
+        f64 = {"cpu_off_f64": float((want.double() - want64).abs().max()),
+               "card_off_f64": float((got.double() - want64).abs().max())}
+        lim = GRAD_K * f64["cpu_off_f64"] + LM_TWIN_TOL * scale
+        diff = f64["card_off_f64"]
+        del want64
+    check(diff <= lim, f"{what} f32: card vs CPU differ by {diff} > {lim}"
+          + (f" (off f64: {f64})" if f64 else ""))
+
+    def row_err(a):
+        d = a - want
+        return float(d.pow(2).mean(-1).sqrt().median()) / float(
+            want.pow(2).mean().sqrt())
+    e_card, e_cpu = (row_err(out["bfloat16", w]) for w in ("card", "cpu"))
+    check(e_card <= BF16_FACTOR * e_cpu + BF16_FLOOR, f"{what} bf16: the "
+          f"card's median row error from f32 {e_card} vs the CPU's {e_cpu}")
+    print(f"  {what}: f32 " + (
+        f"max diff {diff:.3g} (scale {scale:.3g}, sensitivity {sens:.3g}, "
+        f"limit {lim:.3g})" if not f64 else
+        f"off an f64 evaluation by {f64['card_off_f64']:.3g} on the card, "
+        f"{f64['cpu_off_f64']:.3g} on the CPU (scale {scale:.3g}, limit "
+        f"{lim:.3g}; the card's f32 {float((got - want).abs().max()):.3g} "
+        f"from the CPU's, sensitivity {sens:.3g})")
+        + f"; bf16 median row error from the CPU's f32: card {e_card:.4g}, "
+        f"CPU {e_cpu:.4g}")
+    return {"f32_max_diff": float((got - want).abs().max()), "scale": scale,
+            "sensitivity": sens, "limit": lim, **f64,
+            "bf16_row_err_card": e_card, "bf16_row_err_cpu": e_cpu}
+
+
+def _first_repeat(cfg, params):
+    """(config, f32 CPU leaves) of a model's first repeat, with one
+    encoder layer where it has an encoder."""
+    import dataclasses
+    from repro_torch.models import lm
+    from repro_torch.models.params import flatten
+    R1 = lm.block_period(cfg)
+    c1 = dataclasses.replace(cfg, num_layers=R1, dtype="float32",
+                             encoder_layers=min(1, cfg.encoder_layers))
+    cut = ("blocks.", "encoder.layers.")
+    return c1, {k: (v[:R1] if k.startswith(cut) else v).float().cpu()
+                for k, v in flatten(params).items()}
+
+
+def _prefill_profile(fn, n_attn, what):
+    """wall_profile of one prefill forward: the flash kernel ``n_attn``
+    times and no PyTorch attention kernel; adds the flash kernel's time a
+    launch and its share of the device time."""
+    fp, by_name = wall_profile(fn, reps=2, expect={"flash_tc_kernel": n_attn})
+    lib = [n_ for n_ in by_name if any(x in n_ for x in LIB_ATTN)]
+    check(not lib, f"{what}: PyTorch attention kernels in the prefill: {lib}")
+    busy = fp["device_busy_ms"]
+    if by_name:
+        us = sum(v_ for n_, v_ in by_name.items() if "flash_tc_kernel" in n_)
+        fp["flash_us_per_launch"] = us / n_attn
+        fp["flash_share"] = us / 1e3 / busy
+    print(f"  {what}: wall {fp['wall_ms']:.3f} ms, device busy " + (
+        "not measured" if busy is None else
+        f"{busy:.3f} ms, idle share {fp['idle_share']:.3f}, flash "
+        f"{n_attn} launches, {fp['flash_us_per_launch']:.1f} us each, "
+        f"{100 * fp['flash_share']:.1f}% of the device time"))
+    for kname, us_ in fp["top_kernels_us"]:
+        print(f"    {us_:9.1f} us  {kname[:90]}")
+    return fp
+
+
+def _train_steps(cfg, params, batch_of, steps, n_attn, what):
+    """``steps`` steps of ``make_lm_step`` (launch/train's cosine schedule
+    at LT_LR) on ``batch_of(i)``, counted: each step launches the flash
+    kernel and its backward once per attention layer (``n_attn``, the
+    encoder's included), no other kernel of the repo; the losses finite,
+    and the first batch's loss lower after the steps than at the first
+    step; then one profiled step. Returns (readings, launches, attention
+    tally, the last batch)."""
+    import math
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.params import flatten
+    from repro_torch.train import loop, optim
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = loop.make_lm_step(cfg, params, optim.cosine_schedule(
+        LT_LR, warmup=max(1, steps // 10), total=steps))
+    opt = optim.adamw_init(flatten(params))
+    losses, secs, counts = [], [], []
+    with _attn_tally() as tally:
+        ops.reset_launches()
+        for i in range(steps):
+            t = time.perf_counter()
+            b = batch_of(i)
+            first = b if i == 0 else first
+            opt, m = step(opt, b, i)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t)
+            counts.append(dict(ops.launches()))
+        launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    before = {k_: 0 for k_ in launches}
+    for j, now in enumerate(counts):
+        diff = {k_: now[k_] - before[k_] for k_ in now}
+        check(diff == {**{k_: 0 for k_ in now}, "flash_attention": n_attn,
+                       "flash_attention_bwd": n_attn},
+              f"{what} step {j}: launches {diff}")
+        before = now
+    check(len(tally) == steps * n_attn and all(g for _, g in tally),
+          f"{what}: {len(tally)} attention calls")
+    with torch.no_grad():
+        again = float(lm.lm_loss(cfg, params, first)[0])
+    check(all(map(math.isfinite, losses)) and again < losses[0],
+          f"{what}: losses {losses}, the first batch's {again} after them")
+    names = [c for k_ in ("flash_attention", "flash_attention_bwd")
+             for c in LT_CNAMES[k_]]
+    fp, by_name = wall_profile(lambda: step(opt, b, steps), reps=2,
+                               expect={c: n_attn for c in names})
+    lib = [n_ for n_ in by_name if any(x in n_ for x in LIB_ATTN)]
+    check(not lib, f"{what}: PyTorch attention kernels in the step: {lib}")
+    fp["step_wall_ms"] = 1e3 * statistics.median(secs[1:])
+    fp["peak_gib"] = peak
+    busy = fp["device_busy_ms"]
+    if by_name:
+        for k_ in ("flash_attention", "flash_attention_bwd"):
+            us = sum(v_ for n_, v_ in by_name.items()
+                     if any(c in n_ for c in LT_CNAMES[k_]))
+            fp[f"{k_}_us_per_launch"] = us / n_attn
+            fp[f"{k_}_share"] = us / 1e3 / busy
+    out = {"layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+           "steps": steps, "losses": losses, "first_batch_after": again,
+           **fp}
+    print(f"  {what}: {steps} steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (the first batch's {again:.4f} after them); "
+          f"step wall {fp['step_wall_ms']:.3f} ms, device "
+          "busy " + ("not measured" if busy is None else
+                     f"{busy:.3f} ms, idle share {fp['idle_share']:.3f}, "
+                     f"flash fwd {fp['flash_attention_us_per_launch']:.1f} us"
+                     f" and bwd {fp['flash_attention_bwd_us_per_launch']:.1f}"
+                     " us a launch") + f"; peak memory {peak:.2f} GiB")
+    for kname, us_ in fp["top_kernels_us"]:
+        print(f"    {us_:9.1f} us  {kname[:90]}")
+    del step, opt, first
+    return out, launches, tally, b
+
+
+def _decode_vs_forward(cfg, params, frames, tok, dev):
+    """Batch-1 teacher-forced decode of ``tok`` (1, S) with the
+    cross-attention cache filled from ``encoder_kv`` of ``frames``, against
+    the forward on the same frames: the largest logit gap, the gap of a
+    first step with a zero cross cache, and the forward's change under a
+    1e-7 relative change of the embedding, each over max(1, max|logit|)."""
+    import torch
+    from repro_torch.models import lm
+    S = tok.shape[1]
+    with torch.no_grad():
+        full = lm.forward(cfg, params, tok, encoder_frames=frames)[0][0]
+        nudged = lm.forward(cfg, dict(params, embed=params["embed"]
+                                      * (1 + 1e-7)), tok,
+                            encoder_frames=frames)[0][0]
+        kv = lm.encoder_kv(cfg, params, lm.encode(cfg, params, frames))
+        zero = lm.decode_step(cfg, params, lm.init_cache(cfg, 1, S, dev),
+                              tok[:, :1], torch.tensor([0], device=dev))[0]
+        cache = lm.init_cache(cfg, 1, S, dev)
+        for j in range(lm.block_period(cfg)):
+            cache[f"blk{j}"]["xk"].copy_(kv["k"][j])
+            cache[f"blk{j}"]["xv"].copy_(kv["v"][j])
+        rows = []
+        for t in range(S):
+            lg, _ = lm.decode_step(cfg, params, cache, tok[:, t:t + 1],
+                                   torch.tensor([t], device=dev))
+            rows.append(lg[0])
+        dec = torch.stack(rows)
+    scale = max(1.0, float(full.abs().max()))
+    return {"gap": float((dec - full).abs().max()) / scale,
+            "zero_gap": float((zero[0] - full[0]).abs().max()) / scale,
+            "sens": float((nudged - full).abs().max()) / scale,
+            "scale": scale}
+
+
+def encdec_slice(dev, gen, report):
+    """Slice 10 (V1-V4): phi-3-vision-4.2b and whisper-small at full width
+    and depth -- the flash kernels at the new main-path shapes (V1),
+    phi-3's prefill with image embeddings and its server (V2), whisper's
+    encoder-decoder prefill, its decode with a filled cross-attention
+    cache and its server with a zero one (V3), and training of both
+    (V4), with CPU twins. Returns the kernels-line entries of the flash
+    forward and backward at the three shapes."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm
+    from repro_torch.models.params import flatten, unflatten
+
+    def ms(busy):
+        return None if busy is None else busy / 1e3
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf = torch.bfloat16
+    # -- V1. the kernels at the new shapes, against their plain version ---
+    t_s = time.perf_counter()
+    entries = {}
+    for name, (B, H, K, S, D, causal) in V_ATTN.items():
+        what = (f"{name} B={B} H={H} K={K} S={S} D={D} "
+                f"{'causal' if causal else 'non-causal'} bf16")
+        q, k, v, do = _qkvo(gen, dev, B, H, K, S, D, bf)
+        o, lse, res = hold_flash(q, k, v, do, 0, 0.0, f"V1 flash {what}",
+                                 causal)
+        print(f"  V1 flash {what}: {_held(res)}")
+        fb, bb = _flash_bounds(B, H, K, S, D, 0, causal)
+
+        def fwd(a, b, c, cz=causal):
+            return ops.flash_attention(a, b, c, cz)
+
+        def bwd(*a, cz=causal):
+            return ops.flash_attention_bwd(*a, cz)
+
+        def plain(a, b, c, cz=causal):
+            return ref.flash_attention(a, b, c, cz)
+
+        def plain_b(*a, cz=causal):
+            return ref.flash_attention_bwd(*a, cz)
+
+        def sdpa(a, b, c, cz=causal):
+            return F.scaled_dot_product_attention(a, b, c, is_causal=cz)
+        check(_max_err(sdpa(q, k, v), o) <= 5e-2 * max(
+            1.0, float(o.float().abs().max())),
+            f"V1 {name}: SDPA disagrees with the kernel")
+        args = (q, k, v, o, lse, do)
+        lbwd = _bwd_graph(sdpa, q, k, v, do)
+        tf = {"ms": median_ms(fwd, q, k, v),
+              "plain_ms": median_ms(plain, q, k, v, reps=3, inner=3),
+              "library_ms": median_ms(sdpa, q, k, v),
+              "device_ms": ms(device_us([(fwd, (q, k, v))], reps=3,
+                                        expect={"flash_tc_kernel": 1})[0]),
+              "library_device_ms": ms(device_us([(sdpa, (q, k, v))],
+                                                reps=3)[0]),
+              "max_abs_err": res["fwd_max_abs_err"], **fb}
+        tb = {"ms": median_ms(bwd, *args, inner=10),
+              "plain_ms": median_ms(plain_b, *args, reps=3, inner=2),
+              "library_ms": median_ms(lbwd, inner=10),
+              "device_ms": ms(device_us([(bwd, args)], reps=3, expect={
+                  c: 1 for c in LT_CNAMES["flash_attention_bwd"]})[0]),
+              "library_device_ms": ms(device_us([(lbwd, ())], reps=3)[0]),
+              "max_abs_err": res["bwd_max_abs_err"], **bb}
+        for kname, t in (("flash_attention", tf), ("flash_attention_bwd",
+                                                   tb)):
+            check_bound(f"V1 {kname}[{name}]", {
+                kk: vv for kk, vv in t.items() if kk.endswith("ms") and kk
+                not in ("bound_ms", "ops_ms", "bytes_ms")}, t["bound_ms"])
+            entries[f"{kname}[{name}]"] = t
+            print(f"  time {kname} [{what}]: " + ", ".join(
+                f"{kk} {vv:.5g}" if isinstance(vv, float) else f"{kk} {vv}"
+                for kk, vv in t.items()) + "; library: F.scaled_dot_product_"
+                f"attention, is_causal={causal}")
+        del q, k, v, do, o, lse, lbwd
+        torch.cuda.empty_cache()
+    report["v1"] = entries
+    print(f"V1 done in {time.perf_counter() - t_s:.1f} s")
+
+    # -- V2. phi-3-vision: prefill with images and the server, counted ----
+    t_s = time.perf_counter()
+    path = {}                          # model -> [(launches, tally), ...]
+    cfg = get_config("phi-3-vision-4.2b")
+    t = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(
+        SEED + 100), dev)
+    torch.cuda.synchronize()
+    n_par = sum(p_.numel() for p_ in _leaves(params))
+    print(f"phi-3-vision-4.2b: {n_par} parameters, {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, drawn on the card in "
+          f"{time.perf_counter() - t:.1f} s")
+    N = cfg.num_image_tokens
+    img = torch.randn(LM_B, N, cfg.d_model, generator=gen).to(dev, bf)
+    tok = torch.from_numpy(next(synthetic.token_batches(
+        LM_B, LM_S, cfg.vocab_size, seed=0))[0]["tokens"]).to(dev)
+    torch.cuda.synchronize()
+    with _attn_tally() as tally:
+        ops.reset_launches()
+        t_main = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = lm.forward(cfg, params, tok, image_embeds=img)
+            done, secs, steps, _ = _serve_recorded(cfg, params, dev)
+        torch.cuda.synchronize()
+        t_main = time.perf_counter() - t_main
+        launches = ops.launches()
+    path["phi-3-vision-4.2b"] = [(launches, list(tally))]
+    check(launches == {**{k_: 0 for k_ in launches},
+                       "flash_attention": cfg.num_layers}
+          and len(tally) == cfg.num_layers,
+          f"V2 phi-3: launches {launches}, not {cfg.num_layers} "
+          "flash_attention (one a layer of the prefill; decode runs none)")
+    check(tuple(logits.shape) == (LM_B, LM_S, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "V2 phi-3: logits")
+    with torch.no_grad():
+        text = lm.forward(cfg, params, tok)[0]
+    check(not torch.equal(text[:, N:], logits[:, N:]), "V2 phi-3: the "
+          "image embeddings change no logit after them")
+    del logits, text
+    toks = sum(len(r.out_tokens) for r in done)
+    check(len(done) == SERVE_REQUESTS and toks == SERVE_REQUESTS * SERVE_NEW,
+          f"V2 phi-3 server: {len(done)} requests, {toks} tokens")
+    fp = _prefill_profile(
+        lambda: lm.forward(cfg, params, tok, image_embeds=img),
+        cfg.num_layers, f"V2 phi-3-vision-4.2b prefill B={LM_B} S={LM_S} "
+        f"with {N} image embeddings")
+    sv = _served_vs_forward(cfg, params, done, steps, dev,
+                            "V2 phi-3 server bf16")
+    print(f"  V2 phi-3 server: {toks} tokens in {secs:.2f} s "
+          f"({toks / secs:.1f} tok/s, batch {SERVE_BATCH}, bf16); against "
+          f"the teacher-forced text-only forward: {sv['checked']} of "
+          f"{sv['compared']} the forward's argmax at margins of at least "
+          f"{S2_TIE['bfloat16']} x max(1, max|logit|), logits within "
+          f"{sv['max_gap_rel']:.3g} x that")
+    c1, flat1 = _first_repeat(cfg, params)
+    del params, steps, done
+    torch.cuda.empty_cache()
+    twin = _lm_twin(c1, flat1, tok[:1, :V_TWIN_S].cpu(),
+                    {"image_embeds": img[:1].float().cpu()}, dev,
+                    f"V2 phi-3 card vs CPU, 1 layer, S={V_TWIN_S} with {N} "
+                    "image embeddings")
+    del flat1, tok, img
+    report["v2"] = {"parameters": n_par, "main_path_s": t_main,
+                    "prefill": fp, "serve": {"tokens": toks, "seconds": secs,
+                                             "tokens_per_s": toks / secs},
+                    "served_vs_forward": sv, "twin": twin}
+    print(f"V2 done in {time.perf_counter() - t_s:.1f} s")
+
+    # -- V3. whisper-small: encoder-decoder prefill, decode, server -------
+    t_s = time.perf_counter()
+    cfg = get_config("whisper-small")
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(
+        SEED + 101), dev)
+    n_par = sum(p_.numel() for p_ in _leaves(params))
+    n_enc, n_dec = cfg.encoder_layers, cfg.num_layers
+    Fr = cfg.num_encoder_frames
+    print(f"whisper-small: {n_par} parameters, {n_enc} encoder and {n_dec} "
+          f"decoder layers, d_model {cfg.d_model}, {Fr} frames")
+    B, S = V_WHISPER_B, V_WHISPER_S
+    frames = torch.randn(B, Fr, cfg.d_model, generator=gen).to(dev, bf)
+    tok = torch.from_numpy(next(synthetic.token_batches(
+        B, S, cfg.vocab_size, seed=0))[0]["tokens"]).to(dev)
+    torch.cuda.synchronize()
+    with _attn_tally() as tally:
+        ops.reset_launches()
+        t_main = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = lm.forward(cfg, params, tok, encoder_frames=frames)
+            done, secs, steps, _ = _serve_recorded(cfg, params, dev)
+        torch.cuda.synchronize()
+        t_main = time.perf_counter() - t_main
+        launches = ops.launches()
+    path["whisper-small"] = [(launches, list(tally))]
+    check(launches == {**{k_: 0 for k_ in launches},
+                       "flash_attention": n_enc + n_dec}
+          and sorted(c for c, _ in tally) == [False] * n_enc + [True] * n_dec,
+          f"V3 whisper: launches {launches}, attention calls "
+          f"{[c for c, _ in tally]}: not {n_enc} non-causal and {n_dec} "
+          "causal flash launches (decode runs none)")
+    check(tuple(logits.shape) == (B, S, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "V3 whisper: logits")
+    del logits
+    toks = sum(len(r.out_tokens) for r in done)
+    check(len(done) == SERVE_REQUESTS and toks == SERVE_REQUESTS * SERVE_NEW,
+          f"V3 whisper server: {len(done)} requests, {toks} tokens")
+    fp = _prefill_profile(
+        lambda: lm.forward(cfg, params, tok, encoder_frames=frames),
+        n_enc + n_dec, f"V3 whisper-small prefill B={B}: {Fr} frames "
+        f"through the encoder, {S} tokens through the decoder")
+    del steps, done
+    # the server's cross cache is zero (as the reference's): its tokens
+    # against batch-1 decode of a zero cross cache. Whisper's logits are
+    # O(1) (max|logit| about 1), so bf16 noise swamps their top-2 margins;
+    # a second server on the same weights widened to f32 is held to the f32
+    # batch-1 decode at margins over BATCH_TIE, as slice 2 holds batching
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = unflatten({k_: v_.float() for k_, v_ in flatten(params).items()})
+    done32, _, steps32, _ = _serve_recorded(c32, p32, dev)
+    sv = _served_vs_forward(c32, p32, done32, steps32, dev,
+                            "V3 whisper server f32",
+                            teacher=_zero_cross_decode, tie=BATCH_TIE,
+                            least=BATCH_LEAST)
+    print(f"  V3 whisper server: {toks} tokens in {secs:.2f} s "
+          f"({toks / secs:.1f} tok/s, batch {SERVE_BATCH}, bf16, zero cross "
+          "cache); the same server in f32 against batch-1 decode of a zero "
+          f"cross cache: {sv['checked']} of {sv['compared']} tokens its "
+          f"argmax at margins of at least {BATCH_TIE} x max(1, max|logit|), "
+          f"logits within {sv['max_gap_rel']:.3g} x that")
+    del steps32, done32
+    # decode with the cross cache filled from encoder_kv, f32: one repeat
+    # (the tight check), then full depth
+    c1, flat1 = _first_repeat(cfg, params)
+    fr1, tk1 = frames[:1].float(), tok[:1]
+    dvf = {}
+    for depth, c_, p_ in (
+            ("1 repeat", c1, unflatten({k_: v_.to(dev)
+                                        for k_, v_ in flat1.items()})),
+            ("full depth", c32, p32)):
+        r_ = dvf[depth] = _decode_vs_forward(c_, p_, fr1, tk1, dev)
+        lim = V3_GAP + (0.0 if depth == "1 repeat" else SENS_K * r_["sens"])
+        check(r_["gap"] <= lim, f"V3 whisper {depth} decode with filled "
+              f"cross K/V vs the forward: {r_['gap']} x the scale > {lim}")
+        check(depth != "1 repeat" or r_["zero_gap"] > lim, f"V3 whisper "
+              f"{depth}: a zero cross cache decodes within "
+              f"{r_['zero_gap']} x the scale of the frames' forward: the "
+              "frames do not reach decode")
+        print(f"  V3 whisper batch-1 decode {depth}, {c_.encoder_layers}+"
+              f"{c_.num_layers} layers, cross K/V from encoder_kv, f32, "
+              f"{S} positions: logits within {r_['gap']:.3g} x max(1, "
+              f"max|logit|) ({r_['scale']:.3g}) of the forward's (limit "
+              f"{lim:.3g}; the forward's change under a 1e-7 change of the "
+              f"embedding {r_['sens']:.3g}); a zero cross cache "
+              f"{r_['zero_gap']:.3g} off at position 0")
+        del p_
+    del p32
+    twin = _lm_twin(c1, flat1, tok[:1, :V_TWIN_S].cpu(),
+                    {"encoder_frames": frames[:1].float().cpu()}, dev,
+                    f"V3 whisper card vs CPU, 1 encoder and 1 decoder "
+                    f"layer, {Fr} frames, S={V_TWIN_S}")
+    del flat1, frames, tok
+    report["v3"] = {"parameters": n_par, "main_path_s": t_main,
+                    "prefill": fp, "serve": {"tokens": toks, "seconds": secs,
+                                             "tokens_per_s": toks / secs},
+                    "served_vs_zero_cross_decode": sv,
+                    "decode_vs_forward": dvf, "twin": twin}
+    print(f"V3 done in {time.perf_counter() - t_s:.1f} s")
+
+    # -- V4. training through make_lm_step, counted ------------------------
+    t_s = time.perf_counter()
+    B, S, n = V4_WHISPER
+    wframes = torch.randn(n, B, Fr, cfg.d_model, generator=gen).to(bf)
+    wtok = synthetic.token_batches(B, S, cfg.vocab_size, seed=SEED)
+
+    def whisper_batch(i):
+        b = {k_: torch.from_numpy(v_).to(dev)
+             for k_, v_ in next(wtok)[0].items()}
+        b["encoder_frames"] = wframes[i].to(dev)
+        return b
+    v4 = {}
+    v4["whisper-small"], launches, tally, _ = _train_steps(
+        cfg, params, whisper_batch, n, n_enc + n_dec,
+        f"V4 whisper-small B={B} S={S} over {Fr} frames")
+    path["whisper-small"].append((launches, tally))
+    check(sorted(c for c, _ in tally) == [False] * (n * n_enc)
+          + [True] * (n * n_dec), "V4 whisper: not one non-causal flash a "
+          "step and encoder layer")
+    enc = {k_: p_ for k_, p_ in flatten(params).items()
+           if k_.startswith("encoder.")}
+    check(len(enc) == 9 and all(
+        p_.grad is not None and bool(torch.isfinite(p_.grad).all())
+        and bool(p_.grad.any()) for p_ in enc.values()),
+          "V4 whisper: an encoder leaf got no finite, nonzero gradient")
+    del params, enc, wframes
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = get_config("phi-3-vision-4.2b")
+    cfg = dataclasses.replace(base, num_layers=V4_PHI_LAYERS)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(
+        SEED + 102), dev)
+    B, S, n = V4_PHI
+    pimg = torch.randn(n, B, N, cfg.d_model, generator=gen).to(bf)
+    ptok = synthetic.token_batches(B, S, cfg.vocab_size, seed=SEED + 1)
+
+    def phi_batch(i):
+        b = {k_: torch.from_numpy(v_).to(dev)
+             for k_, v_ in next(ptok)[0].items()}
+        b["image_embeds"] = pimg[i].to(dev).requires_grad_(True)
+        return b
+    v4["phi-3-vision-4.2b"], launches, tally, last = _train_steps(
+        cfg, params, phi_batch, n, cfg.num_layers,
+        f"V4 phi-3-vision-4.2b {cfg.num_layers} layers (cut from "
+        f"{base.num_layers}: one card's 80 GB) B={B} S={S} with {N} image "
+        "embeddings")
+    path["phi-3-vision-4.2b"].append((launches, tally))
+    g = last["image_embeds"].grad
+    check(g is not None and bool(torch.isfinite(g).all()) and bool(g.any()),
+          "V4 phi-3: no gradient reached the image embeddings")
+    del params, pimg, last, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["v4"] = v4
+    print(f"V4 done in {time.perf_counter() - t_s:.1f} s")
+
+    # the kernels line: launches on each model's main path (V2-V4), split
+    # by the attention calls' causal flag for whisper's encoder and decoder
+    def counted(model, causal):
+        fwd = bwd = 0
+        for launches, tally in path[model]:
+            check(launches["flash_attention"] == len(tally)
+                  and launches["flash_attention_bwd"] == sum(
+                      g_ for _, g_ in tally), f"{model}: launches "
+                  f"{launches} do not number its attention calls")
+            sel = [g_ for c, g_ in tally if causal is None or c == causal]
+            fwd, bwd = fwd + len(sel), bwd + sum(sel)
+        return fwd, bwd
+    out = []
+    for name, model, causal in (
+            ("whisper-small encoder", "whisper-small", False),
+            ("whisper-small decoder", "whisper-small", True),
+            ("phi-3-vision-4.2b", "phi-3-vision-4.2b", None)):
+        n_fwd, n_bwd = counted(model, causal)
+        for kname, replaces, n_ in (
+                ("flash_attention", "src/repro/kernels/flash_attention.py:65",
+                 n_fwd),
+                ("flash_attention_bwd", "none: no TPU kernel (the "
+                 "reference's LM forward is jnp code that XLA "
+                 "differentiates, src/repro/models/layers.py:165)", n_bwd)):
+            t = entries[f"{kname}[{name}]"]
+            # the step's profile names one kernel for whisper's encoder and
+            # decoder launches: their mean, under its own key
+            step_us = v4[model].get(f"{kname}_us_per_launch")
+            step_ms = None if step_us is None else step_us / 1e3
+            mean = ({} if causal is None else
+                    {"step_device_ms_encoder_and_decoder_mean": step_ms})
+            out.append({
+                "name": f"{kname}[{name}]", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": replaces, "launches": n_,
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "device_ms": t["device_ms"],
+                "library_device_ms": t["library_device_ms"],
+                "step_device_ms": step_ms if causal is None else None,
+                **mean,
+                "library": "F.scaled_dot_product_attention, is_causal="
+                           f"{bool(causal) if causal is not None else True}"})
     return out
 
 
@@ -3210,6 +3893,10 @@ def main() -> None:
     # -- slice 9: the dense and MoE decoders (S1-S5 in arch_slice) ---------
     arch_entries = phase("dense and MoE decoders (slice 9)", arch_slice, dev,
                          gen, report)
+
+    # -- slice 10: phi-3-vision and whisper-small (V1-V4 in encdec_slice) --
+    encdec_entries = phase("phi-3-vision and whisper-small (slice 10)",
+                           encdec_slice, dev, gen, report)
     report["phase_s"] = phase_s
 
     # -- 9. the kernels line -----------------------------------------------
@@ -3252,7 +3939,8 @@ def main() -> None:
             "device_ms": device[name]["ms"],
             "plain_device_ms": device[name]["plain_ms"],
             "library_device_ms": device[name]["library_ms"]})
-    kernels += lm_entries + [train_entry] + lm_train_entries + arch_entries
+    kernels += (lm_entries + [train_entry] + lm_train_entries + arch_entries
+                + encdec_entries)
     report["kernels"] = kernels
     report["profiler_edge_loss"].append(edge_loss(t0))
     print("profiler loss at an unpadded window's start: " + "; ".join(

@@ -79,7 +79,11 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     """Train ``cfg`` to ``steps`` steps on synthetic token batches of
     ``batch`` x ``seq``, from random parameters drawn from ``seed`` or the
     latest checkpoint under ``ckpt_dir``; checkpoint every ``ckpt_every``
-    steps. ``heartbeat(step, seconds)`` is called after every step. A run
+    steps. The batches hold tokens only, as the reference launcher's do: a
+    VLM (phi-3-vision) trains text-only, and an encoder-decoder (whisper)
+    raises ``models.lm.forward``'s ``ValueError`` at its first step, its
+    batch needing encoder frames (train it through ``lm_loss`` and
+    ``make_lm_step`` with a batch that holds them). ``heartbeat(step, seconds)`` is called after every step. A run
     whose latest checkpoint is already at ``steps`` returns at once, with no
     steps and no losses."""
     dev = resolve_device(device)

@@ -5,18 +5,16 @@ the reference's parameter layout (dense weights ``(in, out)``, used as
 ``x @ w``). Activations are in the model dtype (bf16); norms, softmax and
 the SSD accumulation run in fp32, rounding where the reference rounds.
 
-The causal prefill attention is one ``kernels.ops.flash_attention`` call
-over the whole sequence (the reference's block-triangular ``q_block`` loop
-is what that kernel computes), its sliding window and logit softcap
-included; the SSD prefill's inter-chunk state pass is
-``kernels.ops.ssd_chunk_scan`` (the reference computes it with a segsum
-einsum). Decode runs neither kernel, as in the reference. The MoE layer's
-products are torch products, as the reference leaves them to XLA.
-
-Not ported (``lm.check_ported`` or the stubs here raise
-``NotImplementedError``): cross-attention, layernorm, qk-norm and ungated
-MLPs (ROADMAP.md, Queue 1: "remaining LM modules"). Nothing runs a plain
-stand-in for them.
+The prefill attention is one ``kernels.ops.flash_attention`` call over
+the whole sequence, causal (the reference's block-triangular ``q_block``
+loop is what that kernel computes, its sliding window and logit softcap
+included) or not (the encoder's); the SSD prefill's inter-chunk state pass
+is ``kernels.ops.ssd_chunk_scan`` (the reference computes it with a segsum
+einsum). Decode runs neither kernel, as in the reference. Cross-attention
+is the plain ``_sdpa_block``, as the reference computes it outside any
+Pallas kernel: the flash kernels take equal query and key lengths, as the
+TPU kernel does. The MoE layer's products are torch products, as the
+reference leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -32,12 +30,6 @@ from repro_torch.kernels.ref import NEG_INF, _scalar
 from repro_torch.models.params import ParamDef
 
 f32 = torch.float32
-_UNPORTED = "is not ported to repro_torch yet (ROADMAP.md, Queue 1: " \
-            "remaining LM modules)"
-
-
-def unported(what: str):
-    raise NotImplementedError(f"{what} {_UNPORTED}")
 
 
 def acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -58,8 +50,16 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (out * (1.0 + w.to(xf.dtype))).to(x.dtype)
 
 
-def layernorm(x, w, b, eps):
-    unported("layernorm")
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """LayerNorm over the last dim in fp32 (population variance), weight
+    and bias, back in x's dtype. No config of the repo uses it (whisper's
+    norms are ``rmsnorm``, as in the reference)."""
+    xf = x.to(acc_dtype(x))
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps) * w.to(xf.dtype)
+            + b.to(xf.dtype)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -86,6 +86,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_angles(position: torch.Tensor, dim: int,
+                      dtype: torch.dtype = f32) -> torch.Tensor:
+    """(..., dim) absolute positional rows [sin | cos] of the angles
+    position * exp(-ln(10000) 2i / dim), i < dim / 2, computed in
+    ``dtype`` (fp32, or f64 for an f64 evaluation) as the reference does,
+    for positions of any shape."""
+    div = torch.exp(-math.log(10_000.0)
+                    * torch.arange(0, dim, 2, dtype=dtype,
+                                   device=position.device) / dim)
+    ang = position.to(dtype)[..., None] * div
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_embedding(length: int, dim: int, device=None,
+                         dtype: torch.dtype = f32) -> torch.Tensor:
+    """(length, dim) rows of ``sinusoidal_angles`` at positions 0..length-1
+    (the reference's ``sinusoidal_embedding``, fp32)."""
+    return sinusoidal_angles(torch.arange(length, dtype=dtype,
+                                          device=device), dim, dtype)
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
@@ -93,13 +114,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def attn_param_defs(cfg: ModelConfig, layer_dim: Tuple[int, ...] = ()) -> Dict:
     D, Q, KV = cfg.d_model, cfg.q_dim, cfg.kv_dim
     ax = tuple(["layer"] * len(layer_dim))
-    return {
+    d = {
         "norm": ParamDef(layer_dim + (D,), ax + ("embed",), "zeros"),
         "wq": ParamDef(layer_dim + (D, Q), ax + ("fsdp", "tensor"), "scaled"),
         "wk": ParamDef(layer_dim + (D, KV), ax + ("fsdp", "tensor"), "scaled"),
         "wv": ParamDef(layer_dim + (D, KV), ax + ("fsdp", "tensor"), "scaled"),
         "wo": ParamDef(layer_dim + (Q, D), ax + ("tensor", "fsdp"), "scaled"),
     }
+    if cfg.qk_norm:
+        d["q_norm"] = ParamDef(layer_dim + (cfg.head_dim,), ax + (None,),
+                               "zeros")
+        d["k_norm"] = ParamDef(layer_dim + (cfg.head_dim,), ax + (None,),
+                               "zeros")
+    return d
 
 
 def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
@@ -128,23 +155,29 @@ def _qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     k = (x @ p["wk"]).reshape(B, S, K, hd)
     v = (x @ p["wv"]).reshape(B, S, K, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.qk_norm:                   # per head, before RoPE
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.rope_theta > 0:            # 0: sinusoidal positions (_embed)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def _sdpa_block(q, k, v, mask, softcap: float, scale: float,
                 bf16_chain: bool = False):
-    """Decode attention tile, grouped-query form, as the reference's
-    ``_sdpa_block``: fp32 QK scores, the softcap, the mask, softmax,
-    probabilities rounded to q's dtype before the PV product.
+    """Decode and cross-attention tile, grouped-query form, as the
+    reference's ``_sdpa_block``: fp32 QK scores (f64 for f64 q), the
+    softcap, the mask, softmax, probabilities rounded to q's dtype before
+    the PV product.
 
     q: (B,T,K,G,hd); k/v: (B,L,K,hd); mask broadcastable to (B,K,G,T,L)."""
     B, T, K, G, hd = q.shape
     L = k.shape[1]
     qf = q.permute(0, 2, 3, 1, 4).reshape(B, K, G * T, hd)
     kf = k.permute(0, 2, 1, 3)                                   # (B,K,L,hd)
-    scores = torch.matmul(qf.to(f32), kf.to(f32).transpose(-1, -2)) * scale
+    ad = acc_dtype(q)
+    scores = torch.matmul(qf.to(ad), kf.to(ad).transpose(-1, -2)) * scale
     scores = _softcap(scores.reshape(B, K, G, T, L), softcap)
     if bf16_chain:
         # subtract the fp32 row max first, then drop to bf16
@@ -170,9 +203,10 @@ def attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
               positions: torch.Tensor, *, is_local: bool = False,
               causal: bool = True) -> torch.Tensor:
     """Train / prefill attention: one flash-attention call over the whole
-    sequence, reading the seq-major projections through strides; local
-    layers pass the config's sliding window, every layer its logit softcap
-    (the reference's mask and ``_softcap``, ``layers.py:174-191``)."""
+    sequence, reading the seq-major projections through strides, causal
+    or (the encoder's) not; local layers pass the config's sliding window,
+    every layer its logit softcap (the reference's mask and ``_softcap``,
+    ``layers.py:174-191``)."""
     B, S, _ = x.shape
     H = cfg.num_heads
     q, k, v = _qkv(cfg, p, x, positions)
@@ -247,8 +281,18 @@ def attention_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     return out, cache_k, cache_v, scales
 
 
-def cross_attention(cfg, p, x, enc_k, enc_v):
-    unported("cross-attention (encoder-decoder)")
+def cross_attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    """Decoder-to-encoder attention of x (B,S,D) over precomputed encoder
+    K/V (B,F,K,hd): q from ``wq`` (no RoPE, no qk-norm), no mask, no
+    softcap, then ``wo`` (the reference's ``layers.py:270-282``). The plain
+    ``_sdpa_block``, in prefill and decode alike."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    out = _sdpa_block(_group_q(q, K), enc_k, enc_v, None, 0.0,
+                      1.0 / math.sqrt(hd))
+    return out.reshape(B, S, H * hd) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
@@ -278,8 +322,12 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def mlp(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Gated MLP: SwiGLU, or GeGLU for ``act="gelu"``."""
-    return (_act(x @ p["wi_gate"], cfg.act) * (x @ p["wi_up"])) @ p["wo"]
+    """Gated MLP (SwiGLU, or GeGLU for ``act="gelu"``) or, with
+    ``mlp_gated`` False, the plain act(x wi_gate) wo (whisper's)."""
+    h = _act(x @ p["wi_gate"], cfg.act)
+    if cfg.mlp_gated:
+        h = h * (x @ p["wi_up"])
+    return h @ p["wo"]
 
 
 def moe_param_defs(cfg: ModelConfig, layer_dim: Tuple[int, ...] = ()) -> Dict:

@@ -7,20 +7,21 @@ A Python loop over the repeats takes the place of ``lax.scan``.
 
 Entry points (functions on tensors, as in the reference):
   * ``param_defs(cfg)`` / ``init_params(cfg, generator, device)``
-  * ``forward(cfg, params, tokens)`` -- prefill logits (fp32)
+  * ``forward(cfg, params, tokens, image_embeds=, encoder_frames=)`` --
+    prefill logits (fp32)
+  * ``encode`` / ``encoder_kv`` -- whisper's encoder and its cross K/V
   * ``lm_loss(cfg, params, batch)`` / ``xent_loss`` -- training loss
   * ``init_cache(cfg, batch, s_max, device)`` + ``decode_step(...)`` -- serving
 
 The decode cache is a dict of stacked tensors that ``decode_step`` updates
 in place (the reference donates its cache to the jit instead).
 
-Ported sublayers: attention (rope, grouped-query, sliding windows with the
-ring-buffer cache, the attention logit softcap, the INT8 KV cache), the
-gated SiLU and GeLU MLPs, top-k MoE with its aux loss, and Mamba-2 SSD;
-around them sandwich norms, embedding scaling and the final logit
-softcap. What the remaining architectures add (encoder/cross-attention,
-image tokens, sinusoidal positions, qk-norm, ungated MLPs) raises
-``NotImplementedError`` in ``check_ported`` (ROADMAP.md, Queue 1).
+Sublayers: attention (rope or none, qk-norm, grouped-query, sliding
+windows with the ring-buffer cache, the attention logit softcap, the INT8
+KV cache), cross-attention over an encoder's K/V, gated and plain SiLU and
+GeLU MLPs, top-k MoE with its aux loss, and Mamba-2 SSD; around them
+sandwich norms, embedding scaling, image embeddings over the first
+positions, sinusoidal positions and the final logit softcap.
 """
 from __future__ import annotations
 
@@ -71,21 +72,6 @@ def sublayer_kind(cfg: ModelConfig, j: int) -> Dict[str, bool]:
     )
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming every feature of ``cfg`` that
-    the port does not run."""
-    missing = [what for present, what in (
-        (cfg.encoder_layers or cfg.cross_attention,
-         "encoder / cross-attention"),
-        (cfg.num_image_tokens, "image-token merging"),
-        (cfg.rope_theta == 0, "sinusoidal positions"),
-        (cfg.qk_norm, "qk-norm"),
-        (not cfg.mlp_gated, f"the ungated {cfg.act} MLP"))
-        if present]
-    if missing:
-        L.unported(f"{', '.join(missing)} ({cfg.name})")
-
-
 # ---------------------------------------------------------------------------
 # parameter definitions
 # ---------------------------------------------------------------------------
@@ -107,11 +93,12 @@ def _sublayer_defs(cfg: ModelConfig, j: int, R: int) -> Dict:
             if key in d:
                 d[key]["post_norm"] = ParamDef(ld + (cfg.d_model,),
                                                ("layer", "embed"), "zeros")
+    if cfg.cross_attention:
+        d["xattn"] = L.attn_param_defs(cfg, ld)
     return d
 
 
 def param_defs(cfg: ModelConfig) -> Dict:
-    check_ported(cfg)
     D, V = cfg.d_model, cfg.vocab_size
     R, period = num_repeats(cfg), block_period(cfg)
     defs: Dict = {
@@ -122,6 +109,12 @@ def param_defs(cfg: ModelConfig) -> Dict:
     }
     if not cfg.tie_embeddings:
         defs["head"] = ParamDef((D, V), ("fsdp", "tensor"), "scaled")
+    if cfg.encoder_layers:
+        E = cfg.encoder_layers
+        defs["encoder"] = {
+            "layers": {"attn": L.attn_param_defs(cfg, (E,)),
+                       "mlp": L.mlp_param_defs(cfg, (E,))},
+            "final_norm": ParamDef((D,), ("embed",), "zeros")}
     return defs
 
 
@@ -165,10 +158,19 @@ def _ffn(cfg: ModelConfig, kind: Dict, p: Dict, x: torch.Tensor,
     return x, aux
 
 
+def _cross(cfg: ModelConfig, p: Dict, x: torch.Tensor, enc_k: torch.Tensor,
+           enc_v: torch.Tensor) -> torch.Tensor:
+    """x plus the pre-norm cross-attention over an encoder's K/V."""
+    h = L.rmsnorm(x, p["xattn"]["norm"], cfg.norm_eps)
+    return x + L.cross_attention(cfg, p["xattn"], h, enc_k, enc_v)
+
+
 def _apply_sublayer(cfg: ModelConfig, kind: Dict, p: Dict, x: torch.Tensor,
-                    positions: torch.Tensor, aux: torch.Tensor
+                    positions: torch.Tensor, aux: torch.Tensor,
+                    enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pre-norm residual sublayer (sandwich norms where configured);
+    """Pre-norm residual sublayer (sandwich norms where configured), with
+    cross-attention over ``enc_kv`` between its attention and its FFN;
     returns (x, aux) with the MoE aux loss summed in."""
     if kind["attn"]:
         h = L.rmsnorm(x, p["attn"]["norm"], cfg.norm_eps)
@@ -177,18 +179,42 @@ def _apply_sublayer(cfg: ModelConfig, kind: Dict, p: Dict, x: torch.Tensor,
     elif kind["ssm"]:
         h = L.rmsnorm(x, p["ssm"]["norm"], cfg.norm_eps)
         x = x + L.ssd(cfg, p["ssm"], h)
+    if cfg.cross_attention and enc_kv is not None:
+        x = _cross(cfg, p, x, *enc_kv)
     return _ffn(cfg, kind, p, x, aux)
 
 
-def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
-           ) -> torch.Tensor:
+def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+           image_embeds: Optional[torch.Tensor] = None,
+           position: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The embedding rows of ``tokens``, times sqrt(d_model) rounded to the
     activation dtype if ``scale_embedding`` (gemma2), as the reference
-    multiplies."""
+    multiplies; ``image_embeds`` (B', N, D'), cast to the activation dtype,
+    written over the first N positions of the first B' rows (it must fit,
+    as ``lax.dynamic_update_slice`` demands); then, with ``rope_theta`` 0,
+    sinusoidal positions: the table of S rows rounded to the activation
+    dtype in prefill, each row's angles at its ``position`` (B,) in
+    decode."""
     x = params["embed"][tokens.to(torch.long)]
     if cfg.scale_embedding:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
+    if cfg.num_image_tokens and image_embeds is not None:
+        if image_embeds.dim() != 3 or any(
+                n > m for n, m in zip(image_embeds.shape, x.shape)):
+            raise ValueError(f"{cfg.name}: image_embeds "
+                             f"{tuple(image_embeds.shape)} do not fit in the "
+                             f"embedded tokens {tuple(x.shape)}")
+        b, n, d = image_embeds.shape
+        x[:b, :n, :d] = image_embeds.to(x.dtype)
+    if cfg.rope_theta == 0:                      # absolute sinusoidal pos
+        ad = L.acc_dtype(x)
+        if position is not None:                 # decode: (B,) positions
+            pos = L.sinusoidal_angles(position, cfg.d_model, ad)[:, None, :]
+        else:
+            pos = L.sinusoidal_embedding(x.shape[1], cfg.d_model, x.device,
+                                         ad)[None]
+        x = x + pos.to(x.dtype)
     return x
 
 
@@ -203,27 +229,84 @@ def _unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# encoder (whisper)
+# ---------------------------------------------------------------------------
+
+def encode(cfg: ModelConfig, params: Dict, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """Bidirectional encoder over precomputed frame embeddings (B,F,D):
+    frames plus sinusoidal positions (rounded to their dtype), then
+    ``encoder_layers`` pre-norm layers of non-causal attention (the flash
+    kernels with ``causal=False``) and MLP, then a final rmsnorm."""
+    enc = params["encoder"]
+    B, F_, D = frames.shape
+    pos = L.sinusoidal_embedding(F_, D, frames.device,
+                                 L.acc_dtype(frames))
+    x = frames + pos.to(frames.dtype)[None]
+    positions = torch.arange(F_, device=x.device)[None].expand(B, F_)
+    for r in range(cfg.encoder_layers):
+        p = _at(enc["layers"], r)
+        h = L.rmsnorm(x, p["attn"]["norm"], cfg.norm_eps)
+        x = x + L.attention(cfg, p["attn"], h, positions, causal=False)
+        h = L.rmsnorm(x, p["mlp"]["norm"], cfg.norm_eps)
+        x = x + L.mlp(cfg, p["mlp"], h)
+    return L.rmsnorm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def encoder_kv(cfg: ModelConfig, params: Dict, enc_out: torch.Tensor
+               ) -> Dict[str, list]:
+    """The cross-attention K/V of every decoder layer, computed once per
+    request: {"k": [...], "v": [...]}, one (R, B, F, K, hd) tensor per
+    sublayer of the period block (an einsum over the repeat dim, as the
+    reference's ``lm.py:215-234``)."""
+    B, F_, _ = enc_out.shape
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    ks, vs = [], []
+    for j in range(block_period(cfg)):
+        p = params["blocks"][f"blk{j}"]["xattn"]
+        k = torch.einsum("bfd,rde->rbfe", enc_out, p["wk"])
+        v = torch.einsum("bfd,rde->rbfe", enc_out, p["wv"])
+        R = k.shape[0]
+        ks.append(k.reshape(R, B, F_, K, hd))
+        vs.append(v.reshape(R, B, F_, K, hd))
+    return {"k": ks, "v": vs}
+
+
+# ---------------------------------------------------------------------------
 # prefill forward
 # ---------------------------------------------------------------------------
 
-def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
+def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+            image_embeds: Optional[torch.Tensor] = None,
+            encoder_frames: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward of tokens (B,S) on the parameters' device.
-    Returns (logits fp32 (B,S,V), moe_aux_loss): the MoE layers' aux
-    losses summed and divided by ``num_layers`` (0 without MoE)."""
-    check_ported(cfg)
+    """Full-sequence forward of tokens (B,S) on the parameters' device,
+    with ``image_embeds`` (B, N, D) over the first N positions (VLM
+    configs) and, for an encoder-decoder config, its ``encoder_frames``
+    (B, F, D), which it needs. Returns (logits fp32 (B,S,V),
+    moe_aux_loss): the MoE layers' aux losses summed and divided by
+    ``num_layers`` (0 without MoE)."""
     B, S = tokens.shape
     period = block_period(cfg)
-    x = _embed(cfg, params, tokens)                        # (B,S,D) gather
+    x = _embed(cfg, params, tokens, image_embeds)          # (B,S,D) gather
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
+    enc_kv = None
+    if cfg.encoder_layers:
+        if encoder_frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: its forward "
+                             "(and a training batch) needs encoder_frames "
+                             f"(B, F, {cfg.d_model})")
+        enc_kv = encoder_kv(cfg, params, encode(cfg, params, encoder_frames))
     aux = torch.zeros((), dtype=L.acc_dtype(x), device=x.device)
     kinds = [sublayer_kind(cfg, j) for j in range(period)]
     for r in range(num_repeats(cfg)):
         blk = _at(params["blocks"], r)
         for j in range(period):
+            ekv = None if enc_kv is None else (enc_kv["k"][j][r],
+                                               enc_kv["v"][j][r])
             x, aux = _apply_sublayer(cfg, kinds[j], blk[f"blk{j}"], x,
-                                     positions, aux)
+                                     positions, aux, ekv)
     return _unembed(cfg, params, x), aux / max(1, cfg.num_layers)
 
 
@@ -234,10 +317,11 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
 def cache_defs(cfg: ModelConfig, batch: int, s_max: int) -> Dict:
     """ParamDef tree of the decode cache: attention sublayers carry (k, v)
     (INT8 with per-(position, head) scales if ``cfg.kv_cache_int8``), SSM
-    sublayers a conv window and the SSD state. Local layers of a config
-    with ``swa_ring_buffer`` keep min(s_max, window) positions, a ring
-    buffer (``_decode_sublayer``)."""
-    check_ported(cfg)
+    sublayers a conv window and the SSD state, and an encoder-decoder's
+    every sublayer the cross-attention K/V (xk, xv) of its
+    ``num_encoder_frames``. Local layers of a config with
+    ``swa_ring_buffer`` keep min(s_max, window) positions, a ring buffer
+    (``_decode_sublayer``)."""
     R, period = num_repeats(cfg), block_period(cfg)
     K, hd = cfg.num_kv_heads, cfg.head_dim
     dt = cfg.dtype
@@ -268,6 +352,11 @@ def cache_defs(cfg: ModelConfig, batch: int, s_max: int) -> Dict:
                                  cfg.ssm_state),
                                 ("layer", "batch", "heads", None, None),
                                 "zeros", "float32")
+        if cfg.cross_attention:
+            F_ = cfg.num_encoder_frames
+            axes = ("layer", "batch", None, "kv_heads", None)
+            c["xk"] = ParamDef((R, batch, F_, K, hd), axes, "zeros", dt)
+            c["xv"] = ParamDef((R, batch, F_, K, hd), axes, "zeros", dt)
         cache[f"blk{j}"] = c
     return cache
 
@@ -282,10 +371,11 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 
 def _decode_sublayer(cfg: ModelConfig, kind: Dict, p: Dict, c: Dict,
                      x: torch.Tensor, position: torch.Tensor) -> torch.Tensor:
-    """One sublayer of one decode step; writes its cache ``c`` in place.
-    A local layer's cache no longer than the window is a ring buffer (the
-    reference's condition, ``lm.py:333-334``); the MoE's aux loss is
-    dropped, as in the reference's decode."""
+    """One sublayer of one decode step; writes its cache ``c`` in place
+    (cross-attention reads its xk/xv and leaves them). A local layer's
+    cache no longer than the window is a ring buffer (the reference's
+    condition, ``lm.py:333-334``); the MoE's aux loss is dropped, as in the
+    reference's decode."""
     if kind["attn"]:
         h = L.rmsnorm(x, p["attn"]["norm"], cfg.norm_eps)
         ring = bool(kind["local"] and cfg.swa_ring_buffer
@@ -303,6 +393,8 @@ def _decode_sublayer(cfg: ModelConfig, kind: Dict, p: Dict, c: Dict,
         c["conv"].copy_(nconv)
         c["ssm"].copy_(nssm)
         x = x + h
+    if cfg.cross_attention:
+        x = _cross(cfg, p, x, c["xk"], c["xv"])
     return _ffn(cfg, kind, p, x, x.new_zeros((), dtype=f32))[0]
 
 
@@ -312,10 +404,11 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     """One decode step. tokens: (B,1) int; position: (B,) int.
 
     Returns (logits fp32 (B,V), cache); the cache is updated in place and
-    returned for symmetry with the reference."""
-    check_ported(cfg)
+    returned for symmetry with the reference. Decode is text-only (no
+    image embeddings, as in the reference); sinusoidal positions come from
+    ``position``."""
     period = block_period(cfg)
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, None, position=position)
     kinds = [sublayer_kind(cfg, j) for j in range(period)]
     for r in range(num_repeats(cfg)):
         blk, blk_cache = _at(params["blocks"], r), _at(cache, r)
@@ -345,10 +438,12 @@ def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
 def lm_loss(cfg: ModelConfig, params: Dict, batch: Dict,
             aux_weight: float = 0.01) -> Tuple[torch.Tensor, Dict]:
     """(total loss, {"xent", "moe_aux"}) of a batch {"tokens", "labels"[,
-    "mask"]} of tensors on the parameters' device: the cross entropy plus
-    ``aux_weight`` times the MoE aux loss (0 without MoE). Image tokens and
-    encoder frames are not ported (``check_ported``)."""
-    logits, aux = forward(cfg, params, batch["tokens"])
+    "mask", "image_embeds", "encoder_frames"]} of tensors on the
+    parameters' device: the cross entropy plus ``aux_weight`` times the MoE
+    aux loss (0 without MoE)."""
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          image_embeds=batch.get("image_embeds"),
+                          encoder_frames=batch.get("encoder_frames"))
     loss = xent_loss(logits, batch["labels"], batch.get("mask"))
     total = loss + aux_weight * aux
     return total, {"xent": loss, "moe_aux": aux}

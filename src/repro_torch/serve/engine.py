@@ -16,6 +16,11 @@ which is also right for SSM layers, whose recurrent state updates are not
 idempotent. The cache is a dict of stacked tensors on the device that
 ``decode_step`` updates in place. INT8 weight PTQ is optional
 (``quant/ptq.py``).
+
+The server is text-only, as the reference's: a VLM's decode takes no image
+embeddings, and an encoder-decoder's cross-attention cache (xk, xv) stays
+zero (the reference creates it zeroed, zeroes it again per admitted
+request, and never fills it), so its cross-attention adds exactly 0.
 """
 from __future__ import annotations
 
@@ -136,7 +141,8 @@ class ServeEngine:
         """Zero slot i's cache rows in place, every leaf: SSM states are
         recurrent (a stale state would leak into the next request);
         attention rows, the ring caches of sliding-window layers included,
-        are masked by position, but are cleared all the same."""
+        are masked by position, but are cleared all the same, and so are
+        the cross-attention caches."""
         def zero(tree):
             for v in tree.values():
                 if isinstance(v, dict):

@@ -792,33 +792,36 @@ ARCH_ATTN = [(128, 1), (128, 4), (128, 6), (128, 7), (256, 2)]
 ARCH_MASKS = [(4096, 50.0), (0, 50.0), (4096, 0.0), (0, 30.0)]
 
 
-def _masked_case(cuda, H, K, S, D, dtype, window, cap, seed):
+def _masked_case(cuda, H, K, S, D, dtype, window, cap, seed, causal=True,
+                 B=1):
     """Forward (through ops), its lse and the backward kernel against the
     plain forward and autograd of it in f32 on the same (upcast) inputs,
     within the bounds of ref (flash_limit / flash_bf16_limit and
     flash_bwd_limit, each with its stated tanh term); the backward the same
     bits on a second call."""
-    q, k, v, o, lse, do = _attn_case(cuda, 1, H, K, S, D, dtype, True, seed)
-    o, lse = flash_attention.flash_attention(q, k, v, True, with_lse=True,
+    q, k, v, o, lse, do = _attn_case(cuda, B, H, K, S, D, dtype, causal,
+                                     seed)
+    o, lse = flash_attention.flash_attention(q, k, v, causal, with_lse=True,
                                              window=window, softcap=cap)
-    got_o = ops.flash_attention(q, k, v, True, window, cap)
+    got_o = ops.flash_attention(q, k, v, causal, window, cap)
     assert torch.equal(o, got_o)
     qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
-    want = ref.flash_attention(qf, kf, vf, True, window, cap)
+    want = ref.flash_attention(qf, kf, vf, causal, window, cap)
     want.backward(do.float())
     want = want.detach()
     if dtype == torch.bfloat16:
-        lim = ref.flash_bf16_limit(want, q, k, v, True, ATTN_TOL, window, cap)
+        lim = ref.flash_bf16_limit(want, q, k, v, causal, ATTN_TOL, window,
+                                   cap)
     else:
-        lim = ref.flash_limit(want, q, k, v, True, ATTN_TOL, window, cap)
+        lim = ref.flash_limit(want, q, k, v, causal, ATTN_TOL, window, cap)
     assert float(((o.float() - want).abs() - lim).max()) <= 0
     torch.testing.assert_close(lse, ref.flash_attention_lse(
-        q.float(), k.float(), True, window, cap), rtol=1e-5, atol=1e-5)
-    got = ops.flash_attention_bwd(q, k, v, o, lse, do, True, window, cap)
-    again = ops.flash_attention_bwd(q, k, v, o, lse, do, True, window, cap)
+        q.float(), k.float(), causal, window, cap), rtol=1e-5, atol=1e-5)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal, window, cap)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal, window, cap)
     torch.cuda.synchronize()
     wg = (qf.grad, kf.grad, vf.grad)
-    lims = ref.flash_bwd_limit(wg, q, k, v, o, lse, do, True, ATTN_TOL,
+    lims = ref.flash_bwd_limit(wg, q, k, v, o, lse, do, causal, ATTN_TOL,
                                dtype == torch.bfloat16, window, cap)
     for g, a, w, lm_, t in zip(got, again, wg, lims, (q, k, v)):
         assert g.dtype == dtype and g.shape == t.shape
@@ -902,3 +905,98 @@ def test_flash_refuses_bad_window_and_softcap(cuda):
     for bad in (-1.0, float("inf"), float("nan")):
         with pytest.raises(ValueError, match="softcap"):
             flash_attention.flash_attention(q, q, q, softcap=bad)
+
+
+# ---------------------------------------------------------------------------
+# phi-3-vision and whisper-small: non-causal flash at a ragged S, G = 1
+# ---------------------------------------------------------------------------
+
+# (D, G, causal, S) of the slice-10 main path, at 2 heads: whisper's
+# encoder (non-causal, 1500 frames, ragged for every tile) and decoder
+# (448 text positions), phi-3's causal D=96 at G=1; and S around the
+# forward's 64/128-row and the backward's tiles
+ENCDEC_ATTN = [(64, 1, False, 1500), (64, 1, True, 448),
+               (96, 1, True, 2048), (96, 1, True, 1000)]
+
+
+@pytest.mark.parametrize("D,G,causal,S", ENCDEC_ATTN)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_the_encdec_and_vlm_shapes(cuda, D, G, causal, S, dtype):
+    """Forward, log-sum-exp and the three backward launches at the
+    slice-10 shapes (B=2, 2 query heads of G=1), against autograd of the
+    plain version, the backward the same bits twice."""
+    _masked_case(cuda, 2 * G, 2, S, D, dtype, 0, 0.0, S + D, causal, B=2)
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 333, 1500])
+@pytest.mark.parametrize("D", [64, 96])
+def test_flash_non_causal_tile_edges_bf16(cuda, S, D):
+    """The non-causal tensor-core forward and backward where the last key
+    tile of every row is ragged (masked past S in ``flash_bwd_delta_tc``,
+    ``flash_bwd_dkdv_tc`` and ``flash_bwd_dq_tc``), at whisper's and
+    phi-3's head dims with one query head per kv head."""
+    _masked_case(cuda, 3, 3, S, D, torch.bfloat16, 0, 0.0, S * D + 1,
+                 False, B=2)
+
+
+ENCDEC_GRAD_K = 4.0
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "whisper-small"])
+def test_encdec_vlm_step_on_the_card_matches_the_cpu(cuda, full_f32, arch):
+    """One smoke-config step in f32 with image embeddings (phi-3) or
+    encoder frames (whisper), through the kernels forward and backward:
+    one flash launch and one backward a layer (whisper: its encoder's
+    non-causal ones too), every parameter and the image embeddings or
+    frames a finite gradient, held to the same step on the CPU as
+    ``test_lm_step_gradients_on_the_card_match_the_cpu`` holds it, but
+    with ENCDEC_GRAD_K for twice: whisper's cross-attention norm is the
+    worst-conditioned leaf (its f32 gradient 1.4e-3 of the largest entry
+    off f64 on the CPU, 3.0e-3 on the card, 2.08 times)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import lm
+    from repro_torch.models.params import flatten
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    rng = np.random.default_rng(5)
+    tok = rng.integers(0, cfg.vocab_size, (2, 65)).astype(np.int32)
+    key, n = (("image_embeds", cfg.num_image_tokens) if cfg.num_image_tokens
+              else ("encoder_frames", cfg.num_encoder_frames))
+    extra = rng.normal(size=(2, n, cfg.d_model)).astype(np.float32)
+    grads = {}
+    for dev, dt in ((cuda, "float32"), (torch.device("cpu"), "float32"),
+                    (torch.device("cpu"), "float64")):
+        c = dataclasses.replace(cfg, dtype=dt)
+        params = lm.init_params(cfg, _gen(5), dev)
+        flat = flatten(params)
+        for p in flat.values():
+            p.data = p.data.to(getattr(torch, dt))
+            p.requires_grad_(True)
+        x = torch.from_numpy(extra).to(dev, getattr(torch, dt))
+        x.requires_grad_(True)
+        batch = {"tokens": torch.from_numpy(tok[:, :-1]).to(dev),
+                 "labels": torch.from_numpy(tok[:, 1:]).to(dev), key: x}
+        before = dict(ops.launches())
+        lm.lm_loss(c, params, batch)[0].backward()
+        if dev.type == "cuda":
+            now = ops.launches()
+            n_attn = cfg.num_layers + cfg.encoder_layers
+            assert now["flash_attention"] - before["flash_attention"] \
+                == n_attn
+            assert now["flash_attention_bwd"] \
+                - before["flash_attention_bwd"] == n_attn
+        grads[dev.type, dt] = {**{k: p.grad.double().cpu()
+                                  for k, p in flat.items()},
+                               key: x.grad.double().cpu()}
+    card, cpu, f64 = (grads[k] for k in (("cuda", "float32"),
+                                         ("cpu", "float32"),
+                                         ("cpu", "float64")))
+    gmax = max(float(t.abs().max()) for t in cpu.values())
+    for k, gc in card.items():
+        assert bool(torch.isfinite(gc).all()), k
+        if float((gc - cpu[k]).abs().max()) <= 1e-4 * gmax:
+            continue
+        off_card = float((gc - f64[k]).abs().max())
+        off_cpu = float((cpu[k] - f64[k]).abs().max())
+        assert off_card <= ENCDEC_GRAD_K * off_cpu + 1e-4 * gmax, (
+            k, off_card, off_cpu)

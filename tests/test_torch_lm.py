@@ -463,15 +463,45 @@ def test_prefill_and_decode_agree_in_the_port():
     ("whisper-small", "sinusoidal"), ("whisper-small", "ungated"),
     ("whisper-small", "encoder"), ("phi-3-vision-4.2b", "image")])
 def test_unported_model_features_raise(arch, what):
-    """Configs of unported architectures, built here from the reference's
-    fields, are refused by name, never run on a plain path."""
+    """The model features the port once refused by name (sinusoidal
+    positions, the ungated MLP, the encoder, image tokens) now run: a
+    config built from the reference's fields gets the reference's
+    parameter and cache trees, a finite forward, and the feature itself;
+    only a forward that lacks the encoder's frames raises, by name."""
     cfg = tconfigs.ModelConfig(**dataclasses.asdict(jconfigs.get_smoke(arch)))
-    for call in (lambda: lm.param_defs(cfg),
-                 lambda: lm.forward(cfg, {}, torch.zeros(1, 4, dtype=torch.int32)),
-                 lambda: lm.cache_defs(cfg, 1, 8)):
-        with pytest.raises(NotImplementedError, match=what):
-            call()
-    for fn in (lambda: L.cross_attention(cfg, {}, None, None, None),
-               lambda: L.layernorm(None, None, None, 1e-6)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            fn()
+    jcfg = jconfigs.get_smoke(arch)
+
+    def flat(defs, prefix=""):
+        out = {}
+        for k in sorted(defs):
+            v = defs[k]
+            out.update(flat(v, f"{prefix}{k}.") if isinstance(v, dict)
+                       else {prefix + k: dataclasses.astuple(v)})
+        return out
+    assert flat(lm.param_defs(cfg)) == flat(jlm.param_defs(jcfg))
+    assert flat(lm.cache_defs(cfg, 1, 8)) == flat(jlm.cache_defs(jcfg, 1, 8))
+    p = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tok = torch.arange(1, 17, dtype=torch.int32)[None]
+    kw = {}
+    if cfg.encoder_layers:
+        kw["encoder_frames"] = torch.randn(
+            1, cfg.num_encoder_frames, cfg.d_model,
+            generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    logits, _ = lm.forward(cfg, p, tok, **kw)
+    assert logits.shape == (1, 16, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    if what == "sinusoidal":
+        table = L.sinusoidal_embedding(16, cfg.d_model).to(torch.bfloat16)
+        assert torch.equal(lm._embed(cfg, p, tok),
+                           p["embed"][tok.long()] + table[None])
+    elif what == "ungated":
+        assert "wi_up" not in p["blocks"]["blk0"]["mlp"]
+    elif what == "encoder":
+        assert set(p["encoder"]) == {"layers", "final_norm"}
+        with pytest.raises(ValueError, match="encoder_frames"):
+            lm.forward(cfg, p, tok)
+    else:
+        img = torch.ones(1, cfg.num_image_tokens, cfg.d_model,
+                         dtype=torch.bfloat16)
+        assert not torch.equal(lm.forward(cfg, p, tok, image_embeds=img)[0],
+                               logits)

@@ -100,14 +100,12 @@ def _row_err(got, want_f32):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_and_defs_equal_the_reference(arch):
-    """CONFIG and SMOKE field for field, the parameter and cache trees
-    (ring caches on the local layers of a windowed config), and
-    ``check_ported`` accepts the config."""
+    """CONFIG and SMOKE field for field, and the parameter and cache trees
+    (ring caches on the local layers of a windowed config)."""
     for j, t in ((jconfigs.get_config(arch), tconfigs.get_config(arch)),
                  (jconfigs.get_smoke(arch), tconfigs.get_smoke(arch))):
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
         assert j.param_count() == t.param_count()
-        lm.check_ported(t)
 
         def flat(defs, prefix=""):
             out = {}
@@ -123,16 +121,18 @@ def test_configs_and_defs_equal_the_reference(arch):
 
 
 def test_unported_configs_are_still_refused():
-    """phi-3-vision (image tokens) and whisper-small (encoder) are refused
-    by ``check_ported``; jamba waits for sharding in the registry."""
-    for arch, what in (("phi-3-vision-4.2b", "image"),
-                       ("whisper-small", "encoder")):
-        cfg = tconfigs.ModelConfig(**dataclasses.asdict(
-            jconfigs.get_smoke(arch)))
-        with pytest.raises(NotImplementedError, match=what):
-            lm.check_ported(cfg)
-    with pytest.raises(KeyError, match="not ported"):
-        tconfigs.get_config("jamba-1.5-large-398b")
+    """The registry holds every LM architecture of the reference but
+    jamba, in the reference's order; jamba's ``KeyError`` names the
+    sharding it waits for, and ``lm`` no longer has a ``check_ported`` that
+    refuses features."""
+    assert tconfigs.LM_ARCHS == [a for a in jconfigs.LM_ARCHS
+                                 if a != "jamba-1.5-large-398b"]
+    for get in (tconfigs.get_config, tconfigs.get_smoke):
+        with pytest.raises(KeyError, match="sharding"):
+            get("jamba-1.5-large-398b")
+    with pytest.raises(KeyError, match="no such architecture"):
+        tconfigs.get_config("gpt-17")
+    assert not hasattr(lm, "check_ported") and not hasattr(L, "unported")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
