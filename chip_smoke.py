@@ -807,7 +807,7 @@ def train_slice(dev, gen, report, dw_shapes):
     (b4, 384x640) through ``train.loop.run_xr_training``, every stride-1
     depthwise step on the kernel forward (13) and backward (13 dx through
     the forward kernel, 13 dw). Returns the kernels-line entry of
-    depthwise_conv3x3_wgrad."""
+    depthwise_conv3x3_wgrad and the two nets T2 trained, by name."""
     import math
     import shutil
 
@@ -1162,7 +1162,7 @@ def train_slice(dev, gen, report, dw_shapes):
     dev_ms = [passes[n]["dw_ms"] for n, _ in TRAIN_NETS]
     lib_ms = [passes[n]["library_dw_ms"] for n, _ in TRAIN_NETS]
     plain_ms = [passes[n]["plain_dw_ms"] for n, _ in TRAIN_NETS]
-    return {
+    entry = {
         "name": "depthwise_conv3x3_wgrad", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/depthwise_conv.cu",
         "replaces": "none: no TPU kernel (the reference lets XLA transpose "
@@ -1176,6 +1176,120 @@ def train_slice(dev, gen, report, dw_shapes):
         "device_ms": None if None in dev_ms else sum(dev_ms),
         "plain_device_ms": None if None in plain_ms else sum(plain_ms),
         "library_device_ms": None if None in lib_ms else sum(lib_ms)}
+    return entry, {name: runs[name][0] for name, _ in TRAIN_NETS}
+
+
+# -- slice 11: the paper's pipeline, step 4 and the calibration gate ----------
+# the paper's claims for P1 (VGSOT MRAM for every weight and activation
+# level) at 7 nm, on the one-silicon (suite-sized) design of its Tables 2-3:
+# memory power saved at each net's IPS_min on Simba, area saved on both
+# systolic accelerators
+PP_SAVINGS, PP_AREA = 0.24, 0.30
+PP_NODE = 7
+
+
+def pipeline_slice(dev, report, nets, samples):
+    """Slice 11: the paper's four steps end to end. PP1 gates the
+    calibration corners that the XR path ran (``samples``) against the
+    committed refit (``harness.check``). PP2 takes the nets T2 trained
+    (DetNet b8, EDSNet b4, full width), quantizes them and runs one INT8
+    forward each on the card (13 depthwise launches a forward), extracts the
+    trained configs' layer specs and prices them in the port's numpy plane
+    (``core``): SRAM against P0/P1 on Simba and Eyeriss at 7 nm. The priced
+    energies, powers, latencies and areas are the model's estimates for
+    those accelerators, not measurements of this card."""
+    import torch
+    from repro_torch.calibrate import harness
+    from repro_torch.core import dse, nvm
+    from repro_torch.core import experiment as xp
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.models import xr
+    from repro_torch.quant import ptq
+
+    # -- PP1. the calibration gate -----------------------------------------
+    data = harness.calibration_data(samples, dev)
+    fails = harness.check(data=data)
+    gate = Path(harness.CALIB_PATH).name
+    check(not fails, f"PP1 calibration gate against {gate}: {fails}")
+    print(f"PP1 calibration gate: green against {gate} (constants "
+          f"{data['constants']})")
+
+    # -- PP2. PTQ on the card, then specs and pricing ----------------------
+    det, eds = nets["detnet"].cfg, nets["edsnet"].cfg
+    frames = {"detnet": next(synthetic.fphab_batches(
+                  8, det.input_hw, det.in_channels, seed=1))[0]["image"],
+              "edsnet": next(synthetic.openeds_batches(
+                  4, eds.input_hw, seed=1))[0]["image"]}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t = time.perf_counter()
+    outs = {}
+    for name, net in nets.items():
+        qp = ptq.quantize_params(dict(net.named_parameters()))
+        check(all(bool(torch.isfinite(v).all()) for v in qp.values()),
+              f"PP2 {name}: quantized weights not finite")
+        outs[name], _ = ptq.forward_int8(
+            net, torch.from_numpy(frames[name]).to(dev))
+    torch.cuda.synchronize()
+    t_ptq = time.perf_counter() - t
+    launches = ops.launches()
+    check(launches["depthwise_conv3x3"] == 13 * len(nets),
+          f"PP2 INT8 forwards: launches {launches}, not 13 depthwise each")
+    for name, out in outs.items():
+        for k, v in out.items():
+            check(bool(torch.isfinite(v).all()), f"PP2 {name} {k} not "
+                  "finite")
+    print(f"PP2 INT8 PTQ of the trained nets on the card: {t_ptq:.3f} s, "
+          f"launches {launches}")
+
+    t = time.perf_counter()
+    ev = xp.Evaluator()
+    priced = {}
+    for name, net in nets.items():
+        specs = xr.conv_layer_specs(net.cfg)
+        check(specs == ev.specs(name), f"PP2 {name}: the trained config's "
+              "specs are not the ones the paper's tables price")
+        ips = xp.IPS_MIN[name]
+        for arch in xp.SYSTOLICS:
+            reps = {v: dse.evaluate(specs, arch, PP_NODE, v)
+                    for v in ("sram", "p0", "p1")}
+            for v, r in reps.items():
+                row = {"memory_power_uw": nvm.memory_power_w(r, ips) * 1e6,
+                       "savings": nvm.savings_at_ips(r, reps["sram"], ips),
+                       "latency_ms": r.latency_s * 1e3}
+                priced[f"{name} {arch} {v}"] = row
+                print(f"  PP2 modelled {arch} at {PP_NODE} nm, {name}'s "
+                      f"{len(specs)} layers (buffers sized for it alone), "
+                      f"{ips} IPS, {v}: memory power "
+                      f"{row['memory_power_uw']:.3f} uW, savings "
+                      f"{row['savings']:+.4f}, latency "
+                      f"{row['latency_ms']:.4f} ms")
+    table2 = xp.table2_rows(ev, node=PP_NODE)
+    table3 = xp.table3_rows(ev, node=PP_NODE)
+    t_price = time.perf_counter() - t
+    simba3 = [r for r in table3 if r["arch"] == "simba"]
+    check(len(simba3) == 2 and {r["arch"] for r in table2}
+          == set(xp.SYSTOLICS), "PP2: the tables lack a row")
+    for r in table3 + table2:
+        print(f"  PP2 modelled, one silicon: {json.dumps(r)}")
+    for r in simba3:
+        check(r["p1_savings"] >= PP_SAVINGS, f"PP2 {r['workload']} on "
+              f"Simba: P1 saves {r['p1_savings']} of the memory power at "
+              f"IPS_min, under {PP_SAVINGS}")
+    for r in table2:
+        check(r["p1_savings"] >= PP_AREA, f"PP2 {r['arch']}: P1 saves "
+              f"{r['p1_savings']} of the area, under {PP_AREA}")
+    print(f"PP2 pricing in numpy on the host: {t_price:.3f} s; modelled P1 "
+          f"memory power savings at IPS_min on Simba "
+          f"{[r['p1_savings'] for r in simba3]} (>= {PP_SAVINGS}), area "
+          f"savings {[r['p1_savings'] for r in table2]} (>= {PP_AREA})")
+    report["pipeline"] = {
+        "gate": {"path": gate, "fails": fails,
+                 "constants": data["constants"],
+                 "residuals": data["residuals"]},
+        "launches": launches, "ptq_s": t_ptq, "price_s": t_price,
+        "priced": priced, "table2": table2, "table3": table3}
 
 
 # -- slice 6: LM training ----------------------------------------------------
@@ -3883,8 +3997,15 @@ def main() -> None:
     lm_entries = phase("LM serving (slice 2)", lm_slice, dev, gen, report)
 
     # -- slice 5: XR training (T1-T4 in train_slice) -----------------------
-    train_entry = phase("XR training (slice 5)", train_slice, dev, gen,
-                        report, dw_shapes)
+    train_entry, trained = phase("XR training (slice 5)", train_slice, dev,
+                                 gen, report, dw_shapes)
+
+    # -- slice 11: the paper's pipeline (PP1-PP2 in pipeline_slice) --------
+    phase("paper pipeline (slice 11)", pipeline_slice, dev, report, trained,
+          samples)
+    check(phase_s["paper pipeline (slice 11)"] < 60,
+          "the paper pipeline phase took a minute or more")
+    del trained
 
     # -- slice 6: LM training (LT1-LT5 in lm_train_slice) ------------------
     lm_train_entries = phase("LM training (slice 6)", lm_train_slice, dev,

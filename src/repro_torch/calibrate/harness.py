@@ -14,13 +14,26 @@ XLA's ``cost_analysis()`` has no counterpart for a custom CUDA kernel, so
 (``"cost_source": "analytic"`` in the meta): what the port's kernel does and
 moves, each operand read once and each result written once. ``max_abs_err``
 is the kernel against the port's plain version on the same device.
-``fit_constants`` is an own copy of the reference's numpy fit. Nothing here
-writes the reference's ``calibrated.json``.
+``fit_constants`` is an own copy of the reference's numpy fit.
+
+``write_calibrated`` writes the port's own refit, by default
+``calibrated_h100.json`` beside this module, and ``check`` gates a re-run
+against it by the reference's rules: each residual within
+``RESIDUAL_SLACK`` times its baseline plus ``RESIDUAL_FLOOR``, each
+constant within 5% of its baseline. The analytic counts give other
+constants than XLA's ``cost_analysis``, so the pricing plane keeps reading
+``calibrated.json`` (a byte copy of the JAX package's fit), never the refit.
+
+    PYTHONPATH=src python -m repro_torch.calibrate.harness \
+        [--write | --check] [--path FILE] [--device cpu]
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
-from typing import Dict, List, Sequence
+import json
+import os
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +42,14 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops, ref
 
 SEED = 20260808
+CALIB_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "calibrated_h100.json")
+
+# Fit-residual regression gate, as the reference's: a re-run may not exceed
+# the checked-in residual by more than this factor, plus an absolute floor
+# for residuals that are about zero.
+RESIDUAL_SLACK = 1.25
+RESIDUAL_FLOOR = 1e-9
 
 
 @dataclasses.dataclass
@@ -143,9 +164,10 @@ def fit_constants(samples: Sequence[CalSample]):
     return constants, residuals
 
 
-def run_calibration(device: DeviceLike = "cuda") -> Dict:
+def calibration_data(samples: Sequence[CalSample],
+                     device: DeviceLike = "cuda") -> Dict:
+    """The fit of ``samples`` with its meta, in the file's layout."""
     dev = resolve_device(device)
-    samples = run_samples(dev)
     constants, residuals = fit_constants(samples)
     return {
         "meta": {"generator": "repro_torch.calibrate.harness",
@@ -158,3 +180,81 @@ def run_calibration(device: DeviceLike = "cuda") -> Dict:
         "residuals": residuals,
         "samples": [dataclasses.asdict(s) for s in samples],
     }
+
+
+def run_calibration(device: DeviceLike = "cuda") -> Dict:
+    dev = resolve_device(device)
+    return calibration_data(run_samples(dev), dev)
+
+
+def write_calibrated(path: str = CALIB_PATH,
+                     device: DeviceLike = "cuda") -> Dict:
+    data = run_calibration(device)
+    with open(path, "w") as f:
+        json.dump(data, f, indent=1, sort_keys=True)
+        f.write("\n")
+    return data
+
+
+def check(path: str = CALIB_PATH, device: DeviceLike = "cuda",
+          data: Optional[Dict] = None) -> List[str]:
+    """Re-run the corners against the checked-in fit at ``path``; return
+    the failures (an empty list is green). Pass ``data`` to gate an
+    already computed ``run_calibration`` result instead of re-running."""
+    with open(path) as f:
+        baseline = json.load(f)
+    if data is None:
+        data = run_calibration(device)
+    fails: List[str] = []
+    for name, got in data["residuals"].items():
+        ref_val = baseline["residuals"].get(name)
+        if ref_val is None:
+            fails.append(f"residual {name}: no checked-in baseline")
+            continue
+        limit = ref_val * RESIDUAL_SLACK + RESIDUAL_FLOOR
+        if got > limit:
+            fails.append(f"residual {name}: {got:.6g} > limit {limit:.6g} "
+                         f"(baseline {ref_val:.6g})")
+    for name, got in data["constants"].items():
+        ref_val = baseline["constants"].get(name, 0.0)
+        if abs(got - ref_val) > 0.05 * max(abs(ref_val), 1e-12):
+            fails.append(f"constant {name}: refit {got:.6g} drifted >5% "
+                         f"from checked-in {ref_val:.6g}")
+    return fails
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--write", action="store_true",
+                      help="write the refit to --path")
+    mode.add_argument("--check", action="store_true",
+                      help="gate a re-run against the fit at --path")
+    p.add_argument("--path", default=CALIB_PATH)
+    p.add_argument("--device", default="cuda")
+    a = p.parse_args(argv)
+    if a.write:
+        data = write_calibrated(a.path, a.device)
+    else:
+        data = run_calibration(a.device)
+    print(f"device {data['meta']['device']} ({data['meta']['cost_source']} "
+          "counts)")
+    for s in data["samples"]:
+        print(f"  {s['kernel']:15s} {s['precision']:6s} macs {s['macs']} "
+              f"flops {s['flops']:.0f} bytes {s['bytes_accessed']:.0f} "
+              f"max_abs_err {s['max_abs_err']}")
+    print(f"constants {data['constants']}")
+    print(f"residuals {data['residuals']}")
+    if a.write:
+        print(f"wrote {a.path}")
+    if a.check:
+        fails = check(a.path, a.device, data=data)
+        for f in fails:
+            print(f"FAIL {f}")
+        print("check: " + ("failed" if fails else f"green against {a.path}"))
+        return 1 if fails else 0
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

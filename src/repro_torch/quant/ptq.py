@@ -51,27 +51,46 @@ def minmax_scale(x: torch.Tensor, axis: Optional[int] = None,
     return torch.clamp_min(m, 1e-8) / _scalar(qmax(bits), x)
 
 
+def _fma_f32(a: float, b: float, c: float) -> np.float32:
+    """f32(a * b + c) rounded once, for f32 values a, b, c. a * b is exact
+    in f64 (48 bits); the f64 sum is rounded to odd (TwoSum, then one ulp
+    towards the error when it is nonzero and the last bit is even), so the
+    cast to f32 rounds as a single rounding would (53 >= 24 + 2)."""
+    p = a * b
+    s = p + c
+    pp = s - c
+    err = (p - pp) + (c - (s - pp))
+    if err != 0.0 and not int(np.float64(s).view(np.int64)) & 1:
+        s = float(np.nextafter(s, np.inf if err > 0 else -np.inf))
+    return np.float32(s)
+
+
 def _percentile(a: torch.Tensor, pct: float) -> torch.Tensor:
-    """``jnp.percentile(a, pct)`` with linear interpolation, in its f32
-    arithmetic: q = f32(pct)/100, pos = q * (n-1), then the two order
-    statistics around pos weighted (1-frac, frac). ``kthvalue`` picks them,
-    so any size works (``torch.quantile`` refuses more than 2^24 elements)."""
+    """``jnp.percentile(a, pct)`` called eagerly, bit for bit. There pct
+    reaches XLA as a runtime operand, and the compiled position is
+    pos = f32(pct) * f32(f32(f32(n) - 1) * f32(0.01)) (``/100`` became
+    ``*0.01``, folded with n - 1). The two order statistics around pos,
+    clamped to [0, f32(n) - 1] as ``jax._src.numpy.reductions._quantile``
+    clamps them, are interpolated as fma(v_hi, w_hi, f32(v_lo * w_lo)),
+    w_hi = pos - floor(pos), w_lo = 1 - w_hi. The scalar arithmetic runs in
+    numpy f32 on the host, so the card and the CPU give the same bits.
+    ``kthvalue`` picks the order statistics, so any size works
+    (``torch.quantile`` refuses more than 2^24 elements)."""
     flat = a.reshape(-1)
-    f32 = torch.float32
-    n = torch.tensor(float(flat.numel()), dtype=f32)
-    pos = torch.tensor(pct, dtype=f32) / torch.tensor(100.0, dtype=f32) \
-        * (n - 1)
-    lo, hi = torch.floor(pos), torch.ceil(pos)
-    w_hi = pos - lo
-    w_lo = 1 - w_hi
-    last = flat.numel() - 1
-    lo_i = min(max(int(lo), 0), last)
-    hi_i = min(max(int(hi), 0), last)
-    v_lo = torch.kthvalue(flat, lo_i + 1).values.to(f32)
-    v_hi = (v_lo if hi_i == lo_i
-            else torch.kthvalue(flat, hi_i + 1).values.to(f32))
-    return (v_lo * w_lo.to(flat.device) + v_hi * w_hi.to(flat.device)
-            ).to(a.dtype)
+    f32 = np.float32
+    last = f32(f32(flat.numel()) - f32(1))
+    pos = f32(f32(pct) * f32(last * f32(0.01)))
+    lo, hi = np.floor(pos), np.ceil(pos)
+    w_hi = f32(pos - lo)
+    w_lo = f32(f32(1) - w_hi)
+    lo_i = int(min(max(lo, f32(0)), last))
+    hi_i = int(min(max(hi, f32(0)), last))
+    v_lo = float(torch.kthvalue(flat, lo_i + 1).values.to(torch.float32))
+    v_hi = (v_lo if hi_i == lo_i else
+            float(torch.kthvalue(flat, hi_i + 1).values.to(torch.float32)))
+    out = _fma_f32(v_hi, float(w_hi), float(f32(v_lo * float(w_lo))))
+    return torch.tensor(float(out), dtype=torch.float32,
+                        device=a.device).to(a.dtype)
 
 
 def percentile_scale(x: torch.Tensor, pct: float = 99.9,

@@ -122,7 +122,7 @@ def test_percentile_scale_matches_jnp_percentile(rng, pct):
     x = rng.normal(size=(3, 17, 29)).astype(np.float32)
     js = jptq.percentile_scale(jnp.asarray(x), pct)
     ts = ptq.percentile_scale(torch.from_numpy(x), pct)
-    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
 def test_percentile_scale_above_2_pow_24_elements():
@@ -135,12 +135,12 @@ def test_percentile_scale_above_2_pow_24_elements():
         torch.quantile(torch.from_numpy(x).abs(), 0.999)
     js = jptq.percentile_scale(jnp.asarray(x), 99.9)
     ts = ptq.percentile_scale(torch.from_numpy(x), 99.9)
-    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
 @pytest.mark.parametrize("pct", [99.9, None])
 def test_calibrate_acts_same_activations(rng, pct):
-    """The same activations give the same scales (see rtol below)."""
+    """The same activations give the same scales, bit for bit."""
     acts = [{"a": rng.normal(size=(2, 9, 11, 5)).astype(np.float32) * 3,
              "b": rng.random((2, 64)).astype(np.float32)} for _ in range(3)]
     js = jptq.calibrate_acts(lambda b: {k: jnp.asarray(v)
@@ -148,12 +148,25 @@ def test_calibrate_acts_same_activations(rng, pct):
     ts = ptq.calibrate_acts(lambda b: {k: torch.from_numpy(v)
                                        for k, v in b.items()}, acts, pct=pct)
     assert set(ts) == set(js)
-    # rtol 1e-5: XLA compiles jnp.percentile's position q * (n - 1) and its
-    # interpolation with its own rewrites; the result moves by about one f32
-    # ulp of the position times the gap between the two order statistics
-    # (measured 2.1e-6 relative here, where n ~ 1000 leaves wide gaps)
+    # bit equality: the port reproduces the position and the interpolation
+    # that XLA compiles for the eager call (pct a runtime operand), see
+    # ptq._percentile
     for k in js:
-        np.testing.assert_allclose(ts[k], js[k], rtol=1e-5)
+        np.testing.assert_array_equal(ts[k], js[k])
+
+
+def test_percentile_bit_equal_over_500_draws():
+    """Eager ``jnp.percentile`` and the port's ``_percentile`` give the same
+    bits over 500 draws of the calibration test's two shapes and of
+    n = 990 and n = 1479, at the percentiles calibration uses."""
+    rng = np.random.default_rng(21)
+    shapes = [(2, 9, 11, 5), (3, 2, 64), (990,), (1479,)]
+    for i in range(500):
+        x = np.abs(rng.normal(size=shapes[i % 4]).astype(np.float32)) * 3
+        pct = (99.9, 99.99)[(i // 4) % 2]
+        want = np.asarray(jnp.percentile(jnp.asarray(x), pct))
+        got = ptq._percentile(torch.from_numpy(x), pct).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"draw {i}")
 
 
 @pytest.mark.parametrize("name,full", [("detnet", False), ("edsnet", False),
