@@ -45,7 +45,19 @@ with the kernels' launch counts set to 0 just before it and read just after:
     batch-1 decode with the cross-attention cache filled from the encoder
     held to the forward, and its server (a zero cross cache, as the
     reference's) held to batch-1 decode; one-repeat CPU twins of both;
-    training of both through ``make_lm_step``.
+    training of both through ``make_lm_step``;
+  * the search and trace planes (slice 12, ``search_trace_slice``,
+    ST1-ST3), right after the paper's pipeline on the Evaluator that
+    priced the trained nets: streaming Pareto frontiers over two joint
+    lattices (chunked against one-shot pricing byte for byte), ``evolve``,
+    the four XR scenarios, the battery-life sweep and a Chrome trace, all
+    in numpy on the host;
+  * jamba-1.5-large-398b (slice 12, ``jamba_slice``, J1-J4): one period
+    of its stack (8 of 72 layers) at full width with 8 of its 16 experts,
+    whose prefill (B=1, S=8192) runs the flash kernel, the scan kernel and
+    MoE dispatch together, and its server, held in f32 to the
+    teacher-forced forward on a 4-expert draw; its smoke config on the
+    card against the CPU, and trained through ``launch.train``.
 
 Before each path every kernel of it is held against its plain PyTorch
 version at the path's shapes; after it each kernel is timed beside its plain
@@ -364,6 +376,19 @@ def wall_profile(fn, reps=3, expect=None):
             "top_kernels_us": top, "capture": capture}, by_name
 
 
+def _segsum_form(states, decay):
+    """The reference model's inter-chunk pass: exp(segsum) over the padded
+    log decays, one einsum over all chunk pairs (the scan's yardstick: no
+    library call computes the scan)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    cs = torch.log(decay).transpose(1, 2)                  # (B,H,NC)
+    dchunk = torch.exp(L._segsum(F.pad(cs, (1, 0))))
+    allst = torch.cat([torch.zeros_like(states[:, :1]), states], 1)
+    return torch.einsum("bhzc,bchpn->bzhpn", dchunk, allst)[:, :-1]
+
+
 def lm_slice(dev, gen, report):
     """Slice 2: the LM prefill forward and the continuous-batching server
     of full-width Llama-3.2-1B and Mamba-2-1.3B. Returns the kernels-line
@@ -378,7 +403,6 @@ def lm_slice(dev, gen, report):
     from repro_torch.data import synthetic
     from repro_torch.kernels import ops, ref
     from repro_torch.launch import serve
-    from repro_torch.models import layers as L
     from repro_torch.models import lm
 
     def tree_map(fn, tree):
@@ -699,14 +723,7 @@ def lm_slice(dev, gen, report):
     scan_bytes_ms = 4 * (2 * st.numel() + dc.numel()) / HBM_BYTES_PER_S * 1e3
     scan_ops_ms = 2 * st.numel() / FP32_OPS_PER_S * 1e3
 
-    def segsum_form(states, decay):
-        """The reference model's inter-chunk pass: exp(segsum) over the
-        padded log decays, one einsum over all chunk pairs."""
-        cs = torch.log(decay).transpose(1, 2)                  # (B,H,NC)
-        dchunk = torch.exp(L._segsum(F.pad(cs, (1, 0))))
-        allst = torch.cat([torch.zeros_like(states[:, :1]), states], 1)
-        return torch.einsum("bhzc,bchpn->bzhpn", dchunk, allst)[:, :-1]
-    check(max_err(segsum_form(st, dc), ops.ssd_chunk_scan(st, dc)) <= 1e-3,
+    check(max_err(_segsum_form(st, dc), ops.ssd_chunk_scan(st, dc)) <= 1e-3,
           "ssd_chunk_scan disagrees with the segsum form")
 
     def ms(busy):
@@ -717,7 +734,7 @@ def lm_slice(dev, gen, report):
             ("flash_attention", (ops.flash_attention, ref.flash_attention,
                                  sdpa), (q, k, v)),
             ("ssd_chunk_scan", (ops.ssd_chunk_scan, ref.ssd_chunk_scan,
-                                segsum_form), (st, dc))):
+                                _segsum_form), (st, dc))):
         t = {}
         for label, fn in zip(("ms", "plain_ms", "library_ms"), fns):
             t[label] = median_ms(fn, *args)
@@ -1290,6 +1307,168 @@ def pipeline_slice(dev, report, nets, samples):
                  "residuals": data["residuals"]},
         "launches": launches, "ptq_s": t_ptq, "price_s": t_price,
         "priced": priced, "table2": table2, "table3": table3}
+    return ev
+
+
+# -- slice 12: the search and trace planes over the trained nets ------------
+ST_IPS = 10.0                    # the objectives' and the gate's rate
+ST_CHUNK = 512                   # ST1's chunked-vs-one-shot chunk size
+ST_SCENARIOS = ("idle", "gaming", "passthrough", "multi_user")
+ST_CORNERS = ("sram", "p0", "p1")
+
+
+def search_trace_slice(report, ev):
+    """Slice 12's host planes on the Evaluator that priced the trained
+    nets (PP2). ST1: ``stream_frontier`` over the joint Eyeriss lattice of
+    ``launch.dse_sweep`` and ``launch.search``'s default Simba lattice;
+    on the smaller one, the chunked stream against the one-shot
+    ``evaluate_table`` column for column, byte for byte, and the frontier
+    against ``pareto_mask`` of the materialized objectives. ST2:
+    ``evolve`` on DetNet with ``launch.search``'s defaults. ST3: the four
+    scenarios on the SRAM/P0/P1 corners of the XR bundle, the "trace"
+    sweep ranked by battery life, a constant-rate scenario against the
+    steady-state report byte for byte, and a Chrome trace under build/.
+    Every figure is the model's estimate for an XR accelerator, computed
+    in numpy on the host, not a measurement of the card."""
+    import numpy as np
+    from repro_torch.core import experiment as xp
+    from repro_torch.core.schedule import SystemPoint
+    from repro_torch.launch import dse_sweep
+    from repro_torch.launch import search as lsearch
+    from repro_torch.search import (StreamChunk, chunk_objectives, evolve,
+                                    pareto_mask, stream_frontier)
+    from repro_torch.trace import Scenario, get_scenario, simulate
+    from repro_torch.trace.chrometrace import chrome_trace, validate_events
+
+    out = {}
+    # -- ST1. the lattice search -------------------------------------------
+    objectives = ("edp", "pmem")
+    simba_args = lsearch.parse_args(["--lattice"])
+    for name, lattice, min_ips in (
+            ("eyeriss joint (dse_sweep)", dse_sweep.joint_lattice(), ST_IPS),
+            ("simba default (launch.search)",
+             lsearch.build_lattice(simba_args), simba_args.min_ips)):
+        t = time.perf_counter()
+        arc = stream_frontier(ev, lattice, objectives=objectives, ips=ST_IPS,
+                              min_ips=min_ips)
+        secs = time.perf_counter() - t
+        ids, vals = arc.frontier()
+        check(len(arc) > 0 and arc.seen == len(lattice),
+              f"ST1 {name}: frontier {len(arc)} of {arc.seen} seen")
+        rows = [lsearch.point_row(lattice.point_at(int(i)), v, objectives,
+                                  pid=int(i)) for i, v in zip(ids, vals)]
+        out[f"ST1 {name}"] = {"points": len(lattice), "seconds": secs,
+                              "frontier": len(arc), "dropped": arc.dropped,
+                              "rows": rows}
+        print(f"ST1 {name}: {len(lattice):,} points streamed in {secs:.3f} s"
+              f" on the host ({len(lattice) / secs / 1e6:.2f} M designs/s),"
+              f" frontier {len(arc)} ({arc.dropped:,} infeasible)")
+        for r in rows[:3]:
+            print(f"  ST1 modelled {r['workload']}/{r['arch']}/{r['node']}nm"
+                  f"/{r['variant']}/{r['pe_config']}/{r['precision']}: " +
+                  ", ".join(f"{k} {v:.4g}" for k, v in
+                            r["objectives"].items()))
+        if lattice.name == "joint":         # the smaller lattice
+            pts = list(lattice)
+            whole = ev.evaluate_table(pts)
+            chunks = list(ev.evaluate_stream(lattice, chunk_size=ST_CHUNK))
+            check(len(chunks) == -(-len(pts) // ST_CHUNK),
+                  f"ST1 {name}: {len(chunks)} chunks")
+            cols = [f for f in dir(type(whole)) if isinstance(
+                getattr(type(whole), f), property) and isinstance(
+                getattr(whole, f), np.ndarray)]
+            for col in cols:
+                cat = np.concatenate([getattr(c.energy, col)
+                                      for c in chunks])
+                check(np.array_equal(cat, getattr(whole, col),
+                                     equal_nan=cat.dtype.kind == "f"),
+                      f"ST1 {name}: chunked {col} differs from one-shot")
+            vals_all = chunk_objectives(StreamChunk(0, pts, whole),
+                                        objectives, ST_IPS)
+            feasible = np.flatnonzero(whole.max_ips >= min_ips)
+            mask = pareto_mask(vals_all[feasible])
+            check(set(feasible[mask].tolist()) == set(ids.tolist()),
+                  f"ST1 {name}: the streamed frontier is not pareto_mask of "
+                  "the materialized objectives")
+            print(f"  ST1 {name}: {len(chunks)} chunks of {ST_CHUNK} equal "
+                  f"the one-shot table in {len(cols)} columns, byte for "
+                  "byte; the frontier is pareto_mask of the materialized "
+                  "objectives")
+
+    # -- ST2. evolve --------------------------------------------------------
+    a = lsearch.parse_args(["--evolve"])
+    t = time.perf_counter()
+    res = evolve(ev, workload=a.workload, objectives=tuple(
+        a.objectives.split(",")), ips=a.ips, generations=a.budget,
+        population=a.population, seed=a.seed)
+    secs = time.perf_counter() - t
+    fpts, fvals = res.frontier()
+    check(res.generations == a.budget and len(fpts) > 0
+          and res.best_value == float(fvals[:, 0].min()),
+          f"ST2 evolve: {res.generations} generations, best "
+          f"{res.best_value}, frontier {len(fpts)}")
+    p = res.best_point
+    out["ST2 evolve"] = {"seconds": secs, "evaluated": res.n_evaluated,
+                         "frontier": len(fpts), "best": repr(p),
+                         "best_value": res.best_value}
+    print(f"ST2 evolve {a.workload}, {a.budget} generations x "
+          f"{a.population}: {secs:.3f} s on the host, {res.n_evaluated} "
+          f"designs priced, frontier {len(fpts)}; modelled best {p.arch} @ "
+          f"{p.node}nm {p.variant} pe={p.pe_config} {p.precision_label}: "
+          f"edp {res.best_value:.4g} J*s")
+
+    # -- ST3. the trace plane ---------------------------------------------
+    t = time.perf_counter()
+    corners = [SystemPoint(xp.XR_BUNDLE, "simba", 7, variant=v,
+                           mode="reload") for v in ST_CORNERS]
+    tables = {}
+    for name in ST_SCENARIOS:
+        tab = simulate(ev, corners, get_scenario(name))
+        tables[name] = tab
+        for i, v in enumerate(ST_CORNERS):
+            r = tab.report(i)
+            check(np.isfinite(r.avg_p_total_w) and r.battery_h > 0,
+                  f"ST3 {name} {v}: {r.to_row()}")
+            out[f"ST3 {name} {v}"] = r.to_row()
+            print(f"  ST3 modelled {name} ({tab.n_windows} windows) simba "
+                  f"7nm {v}: avg {r.avg_p_total_w * 1e3:.4f} mW, peak "
+                  f"{r.peak_p_total_w * 1e3:.4f} mW, p99 "
+                  f"{r.p99_p_total_w * 1e3:.4f} mW, misses "
+                  f"{r.miss_windows}, battery {r.battery_h:.1f} h")
+    rows = xp.trace_rows(ev, scenario="gaming")
+    hours = [r["battery_h"] for r in rows]
+    check(hours == sorted(hours, reverse=True) and len(rows) == 256,
+          f"ST3 trace sweep: {len(rows)} rows, not ranked by battery life")
+    out["ST3 trace sweep"] = rows[:5]
+    print(f"  ST3 modelled trace sweep (gaming, 256 placements): best "
+          f"{rows[0]['placement']} {rows[0]['battery_h']:.1f} h, worst "
+          f"{rows[-1]['placement']} {rows[-1]['battery_h']:.1f} h")
+    pts = corners + [SystemPoint(xp.XR_BUNDLE, "simba", 7, variant=v,
+                                 mode="union") for v in ST_CORNERS]
+    steady = ev.system_table(pts)
+    const = ev.trace_table(pts, Scenario.constant(
+        {s.name: s.ips for s in xp.XR_BUNDLE}, 30.0))
+    for col in ("p_mem_w", "duty", "feasible", "dyn_w", "reload_w",
+                "wake_rate", "stream_duty", "switch_rate"):
+        check(np.array_equal(getattr(const.cols, col)[0],
+                             getattr(steady, col)),
+              f"ST3 constant-rate scenario: {col} is not the steady state's")
+    check(const.n_windows == 1 and np.array_equal(const.avg_p_mem_w,
+                                                  steady.p_mem_w),
+          "ST3 constant-rate scenario: not the steady-state power")
+    doc = chrome_trace(tables["gaming"])
+    bad = validate_events(doc)
+    check(not bad, f"ST3 Chrome trace: {bad[:5]}")
+    (ROOT / "build").mkdir(exist_ok=True)
+    path = ROOT / "build" / "chip_smoke_trace.json"
+    path.write_text(json.dumps(doc, indent=1))
+    secs = time.perf_counter() - t
+    print(f"ST3 trace plane: 4 scenarios x 3 corners, the 256-placement "
+          f"sweep, the steady-state oracle byte for byte and a Chrome trace "
+          f"of {len(doc['traceEvents'])} events ({path.relative_to(ROOT)}; "
+          f"validate_events: none bad) in {secs:.3f} s on the host")
+    out["ST3 seconds"] = secs
+    report["search_trace"] = out
 
 
 # -- slice 6: LM training ----------------------------------------------------
@@ -1341,7 +1520,6 @@ def lm_train_slice(dev, gen, report):
     from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import ops, ref
     from repro_torch.launch import train as ltrain
-    from repro_torch.models import layers as L
     from repro_torch.models import lm
     from repro_torch.models.params import flatten, unflatten
     from repro_torch.train import loop, optim
@@ -1633,17 +1811,11 @@ def lm_train_slice(dev, gen, report):
         return lambda: torch.autograd.grad(y, (qs, ks, vs), do,
                                            retain_graph=True)
 
-    def segsum_form(states, decay):
-        cs = torch.log(decay).transpose(1, 2)
-        dchunk = torch.exp(L._segsum(F.pad(cs, (1, 0))))
-        allst = torch.cat([torch.zeros_like(states[:, :1]), states], 1)
-        return torch.einsum("bhzc,bchpn->bzhpn", dchunk, allst)[:, :-1]
-
     def segsum_bwd_call(st, dc, g):
         """The backward of the reference model's segsum-einsum form of the
         scan alone: the scan backward's yardstick (no library call)."""
         sa, da = st.clone().requires_grad_(), dc.clone().requires_grad_()
-        y = segsum_form(sa, da)
+        y = _segsum_form(sa, da)
         return lambda: torch.autograd.grad(y, (sa, da), g, retain_graph=True)
 
     def ms(busy):
@@ -3457,6 +3629,497 @@ def encdec_slice(dev, gen, report):
     return out
 
 
+# -- slice 12: jamba-1.5-large-398b -----------------------------------------
+# J1-J2 run one period of the stack, 8 of its 72 layers (lcm of attn_period
+# 8 and moe_period 2: SSD + MLP at j = 0, 2, 6, SSD + MoE at 1, 3, 5, 7,
+# attention + MLP at 4), at full width (d_model 8192, 64/8 heads of 128,
+# d_ff 24576, SSD state 128 and 256 heads), with 8 of its 16 experts (top-2
+# kept): 25.8 B parameters, 48.1 GiB in bf16. At 16 experts the period
+# holds 45.1 B (84.1 GiB), more than the card's 80 GB. Weights are drawn on
+# the card from a seeded card generator.
+J_ARCH = "jamba-1.5-large-398b"
+J_EXPERTS = 8
+J_S = 8192                       # prefill B=1: 32 SSD chunks of 256
+# J2 holds the server in f32, as S2 holds a MoE config's, on a second draw
+# of the period cut to 4 experts (16.2 B parameters, 60.3 GiB widened to
+# f32; the 8-expert period is 96.2 GiB in f32). Its SSD layers round as
+# Mamba's one repeat does (chunked prefill against the step-by-step
+# recurrence), so the served tokens are held at slice 2's one-repeat f32
+# threshold, SERVE_TIE, on at least S2_LEAST[MoE] of them
+J_HOLD_EXPERTS = 4
+# J3: the smoke config on the card against the CPU in f32, at
+# tests/test_torch_lm_archs.py's tolerances for MoE configs: logits within
+# J_TOL of their scale and each gradient leaf within J_TOL of the largest
+# entry, or no further from the CPU's f64 evaluation than J_GRAD_K times
+# the CPU's own f32 distance (+ the same term); plus, as S3 and the LM
+# twins hold the card, SENS_K x the card's own change under a 1e-7
+# relative change of every leaf: this random net amplifies f32 rounding
+# (a 1e-7 change moves its logits 1.1e-3 of their scale), and the card's
+# f32 logits sat 4.6 times as far from f64 as the CPU's, through the
+# kernels and through the plain versions alike (PERF.md, section 6)
+J_TWIN_B, J_TWIN_S, J_DECODE = 2, 64, 24
+J_TOL, J_GRAD_K = 1e-4, 4.0
+# J4: the smoke config trained through launch.train (B=2, S=64: two SSD
+# chunks of 32)
+J_STEPS, J_TRAIN_B, J_TRAIN_S = 5, 2, 64
+
+
+def _grouped_plain(q, k, v):
+    """The plain causal flash on HOLD_HEADS query heads at a time (heads
+    are independent), so that its S x S scores fit on the card."""
+    import torch
+    from repro_torch.kernels import ref
+    G = q.shape[1] // k.shape[1]
+    n = max(1, HOLD_HEADS // G)
+    return torch.cat([ref.flash_attention(q[:, j * G:(j + n) * G],
+                                          k[:, j:j + n], v[:, j:j + n])
+                      for j in range(0, k.shape[1], n)], 1)
+
+
+def _twin_rows(what, got, want, want64, scale, extra):
+    """Card rows ``got`` against the CPU's ``want``: each row within
+    J_TOL x ``scale`` + ``extra`` (SENS_K x the card's sensitivity), or
+    no further from the CPU's f64 ``want64`` than J_GRAD_K x the CPU's own
+    distance (+ J_TOL x scale). Returns (max diff, rows held by the f64
+    rule)."""
+    diff = (got - want).abs().amax(-1)
+    near = diff <= J_TOL * scale + extra
+    far = 0
+    if want64 is not None and not bool(near.all()):
+        card = (got.double() - want64).abs().amax(-1)
+        cpu = (want.double() - want64).abs().amax(-1)
+        ok = near | (card <= J_GRAD_K * cpu + J_TOL * scale)
+        check(bool(ok.all()), f"{what}: card vs CPU {float(diff.max())} "
+              f"(scale {scale}), card off f64 {float(card.max())}, CPU "
+              f"{float(cpu.max())}")
+        far = int((~near).sum())
+    check(want64 is not None or bool(near.all()), f"{what}: card vs CPU "
+          f"differ by {float(diff.max())} > {J_TOL} x {scale} + {extra}")
+    return float(diff.max()), far
+
+
+def jamba_slice(dev, gen, report):
+    """Slice 12 (J1-J4): jamba-1.5-large-398b, whose one stack runs the
+    flash kernel, the scan kernel and MoE dispatch together. J1: the two
+    kernels at the prefill's shapes against their plain versions, then
+    one period at full width with 8 of 16 experts: bf16 prefill at B=1,
+    S=8192, counted and profiled. J2: its server (8 requests, batch 4),
+    held in f32 to the teacher-forced forward on a 4-expert draw. J3: the
+    smoke config on the card against the CPU (logits, a decode run, one
+    ``lm_loss`` gradient). J4: the smoke config trained 5 steps through
+    ``launch.train``. Returns the kernels-line entries of flash and the
+    scan at J1's shapes."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models.params import flatten, unflatten
+    from repro_torch.train import loop
+
+    def ms(busy):
+        return None if busy is None else busy / 1e3
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = get_config(J_ARCH)
+    P = lm.block_period(base)
+    cfg = dataclasses.replace(base, num_layers=P, num_experts=J_EXPERTS)
+    kinds = [lm.sublayer_kind(cfg, j) for j in range(P)]
+    n_attn = sum(k_["attn"] for k_ in kinds)
+    n_ssm = sum(k_["ssm"] for k_ in kinds)
+    check((P, n_attn, n_ssm, sum(k_["moe"] for k_ in kinds)) == (8, 1, 7, 4),
+          f"jamba's period: {P} layers, {kinds}")
+    cuts = (f"{P} of {base.num_layers} layers (one period), {J_EXPERTS} of "
+            f"{base.num_experts} experts (top-{cfg.experts_per_token} kept)")
+    H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scan_shape = (1, J_S // cfg.ssm_chunk, cfg.ssm_heads, cfg.ssm_head_dim,
+                  cfg.ssm_state)
+    print(f"slice 12 starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+          f" GiB allocated, {torch.cuda.mem_get_info()[0] / 2 ** 30:.2f} "
+          f"free; cuts: {cuts}")
+
+    # -- J1a. the kernels at the prefill's shapes, before the weights -------
+    t_s = time.perf_counter()
+    what = f"B=1 S={J_S} H={H} K={K} D={D} causal bf16"
+    q, k, v, do = _qkvo(gen, dev, 1, H, K, J_S, D, torch.bfloat16)
+    o, _, res = hold_flash(q, k, v, do, 0, 0.0, f"J1 flash {what}")
+    print(f"  J1 flash {what}: {_held(res)}")
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                              enable_gqa=True)
+    check(_max_err(sdpa(q, k, v), o) <= 5e-2 * max(
+        1.0, float(o.float().abs().max())), "J1: SDPA disagrees with flash")
+    fb, _ = _flash_bounds(1, H, K, J_S, D, 0)
+    tf = {"ms": median_ms(ops.flash_attention, q, k, v),
+          "plain_ms": median_ms(_grouped_plain, q, k, v, reps=3, inner=2),
+          "library_ms": median_ms(sdpa, q, k, v),
+          "device_ms": ms(device_us([(ops.flash_attention, (q, k, v))],
+                                    reps=3, expect={"flash_tc_kernel": 1})[0]),
+          "plain_device_ms": ms(device_us([(_grouped_plain, (q, k, v))],
+                                          reps=2)[0]),
+          "library_device_ms": ms(device_us([(sdpa, (q, k, v))],
+                                            reps=3)[0]),
+          "max_abs_err": res["fwd_max_abs_err"], **fb}
+    del q, k, v, do, o
+    st = torch.randn(scan_shape, generator=gen).to(dev)
+    dc = (torch.rand(scan_shape[:3], generator=gen) * 0.5 + 0.5).to(dev)
+    got = ops.ssd_chunk_scan(st, dc)
+    check(torch.equal(got, ref.ssd_chunk_scan(st, dc)),
+          f"J1 ssd_chunk_scan {scan_shape}: not bit-equal to its plain "
+          "version")
+    seg_err = _max_err(_segsum_form(st, dc), got)
+    check(seg_err <= 1e-3 * max(1.0, float(got.abs().max())),
+          f"J1 ssd_chunk_scan: the segsum form differs by {seg_err}")
+    del got
+    s_bytes = 4 * (2 * st.numel() + dc.numel()) / HBM_BYTES_PER_S * 1e3
+    s_ops = 2 * st.numel() / FP32_OPS_PER_S * 1e3
+    ts = {"ms": median_ms(ops.ssd_chunk_scan, st, dc),
+          "plain_ms": median_ms(ref.ssd_chunk_scan, st, dc, reps=3,
+                                inner=5),
+          "segsum_ms": median_ms(_segsum_form, st, dc, reps=3, inner=5),
+          "device_ms": ms(device_us([(ops.ssd_chunk_scan, (st, dc))],
+                                    reps=3, expect={"ssd_scan_kernel": 1})[0]),
+          "plain_device_ms": ms(device_us([(ref.ssd_chunk_scan, (st, dc))],
+                                          reps=2)[0]),
+          "segsum_device_ms": ms(device_us([(_segsum_form, (st, dc))],
+                                           reps=2)[0]),
+          "library_ms": None, "library_device_ms": None,
+          "max_abs_err": 0.0, "bound_ms": max(s_bytes, s_ops),
+          "bound_by": "bytes" if s_bytes >= s_ops else "operations",
+          "bytes_ms": s_bytes, "ops_ms": s_ops}
+    del st, dc
+    for name, t in (("flash_attention", tf), ("ssd_chunk_scan", ts)):
+        check_bound(f"J1 {name}", {kk: vv for kk, vv in t.items()
+                                   if kk.endswith("ms") and kk not in
+                                   ("bound_ms", "ops_ms", "bytes_ms")},
+                    t["bound_ms"])
+        print(f"  time {name} [{J_ARCH}] " + ", ".join(
+            f"{kk} {vv:.5g}" if isinstance(vv, float) else f"{kk} {vv}"
+            for kk, vv in t.items()))
+    torch.cuda.empty_cache()
+    print(f"J1 kernels at jamba's shapes: flash {what} within its bounds; "
+          f"the scan {scan_shape} f32 bit-equal; "
+          f"{time.perf_counter() - t_s:.1f} s")
+
+    # -- J1b-J2. prefill and the server at full width, counted --------------
+    t_s = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED + 90),
+                            dev)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in _leaves(params))
+    print(f"{J_ARCH}: {n_par} parameters ({cuts}), d_model {cfg.d_model}, "
+          f"{n_par * 2 / 2 ** 30:.2f} GiB in bf16, drawn on the card in "
+          f"{time.perf_counter() - t_s:.1f} s")
+    tok = torch.from_numpy(next(synthetic.token_batches(
+        1, J_S, cfg.vocab_size, seed=0))[0]["tokens"]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t = time.perf_counter()
+    with torch.no_grad():
+        logits, aux = lm.forward(cfg, params, tok)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(tuple(logits.shape) == (1, J_S, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"J1: logits {tuple(logits.shape)} not finite")
+        check(bool(torch.isfinite(aux)) and float(aux) > 0,
+              f"J1: aux loss {float(aux)}")
+        del logits
+        done, secs, steps, routes = _serve_recorded(cfg, params, dev)
+    torch.cuda.synchronize()
+    t_main = time.perf_counter() - t
+    launches = ops.launches()
+    check(launches == {**{k_: 0 for k_ in launches}, "flash_attention":
+                       n_attn, "ssd_chunk_scan": n_ssm},
+          f"J1-J2: launches {launches}, not {n_attn} flash_attention and "
+          f"{n_ssm} ssd_chunk_scan (the prefill's; decode runs neither)")
+    toks = sum(len(r.out_tokens) for r in done)
+    check(len(done) == SERVE_REQUESTS and toks == SERVE_REQUESTS * SERVE_NEW
+          and all(0 <= x < cfg.vocab_size for r in done
+                  for x in r.out_tokens),
+          f"J2 server: {len(done)} requests, {toks} tokens")
+    n_assign = n_drop = 0
+    for probs, eidx, pos, C in routes:
+        we, wp = _route_np(probs, cfg.experts_per_token)
+        check(np.array_equal(eidx, we) and np.array_equal(pos, wp)
+              and C == L.moe_capacity(cfg, probs.shape[0]),
+              f"J2 server: a dispatch of {probs.shape[0]} tokens differs "
+              "from the reference's order and slots")
+        n_assign += pos.size
+        n_drop += int((pos >= C).sum())
+    check(len(routes) > 0, "J2: no MoE dispatch recorded")
+    names = {"flash_tc_kernel": n_attn, "ssd_scan_kernel": n_ssm}
+    fp, by_name = wall_profile(lambda: lm.forward(cfg, params, tok), reps=2,
+                               expect=names)
+    lib = [n_ for n_ in by_name if any(x in n_ for x in LIB_ATTN)]
+    check(not lib, f"J1: PyTorch attention kernels in the prefill: {lib}")
+    busy = fp["device_busy_ms"]
+    if by_name:
+        for kname, n in names.items():
+            us = sum(v_ for n_, v_ in by_name.items() if kname in n_)
+            fp[f"{kname}_us_per_launch"] = us / n
+            fp[f"{kname}_share"] = us / 1e3 / busy
+    fp.update(prefill_s=t_prefill, peak_gib=peak, parameters=n_par,
+              cuts=cuts)
+    j1 = fp
+    print(f"  J1 prefill {J_ARCH} ({cuts}) B=1 S={J_S} bf16: first call "
+          f"{t_prefill:.3f} s, wall {fp['wall_ms']:.3f} ms, device busy " + (
+              "not measured" if busy is None else
+              f"{busy:.3f} ms, idle share {fp['idle_share']:.3f}, flash "
+              f"{fp['flash_tc_kernel_us_per_launch']:.1f} us x {n_attn} "
+              f"({100 * fp['flash_tc_kernel_share']:.2f}%), scan "
+              f"{fp['ssd_scan_kernel_us_per_launch']:.1f} us x {n_ssm} "
+              f"({100 * fp['ssd_scan_kernel_share']:.2f}%)")
+          + f"; peak memory {peak:.2f} GiB")
+    for kname, us_ in fp["top_kernels_us"]:
+        print(f"    {us_:9.1f} us  {kname[:90]}")
+    j2 = {"tokens": toks, "seconds": secs, "tokens_per_s": toks / secs,
+          "dispatches": {"calls": len(routes), "assignments": n_assign,
+                         "dropped": n_drop}}
+    print(f"  J2 server {J_ARCH} ({cuts}): {toks} tokens in {secs:.2f} s "
+          f"({toks / secs:.1f} tok/s, batch {SERVE_BATCH}, bf16); "
+          f"{len(routes)} MoE dispatches, {n_assign} assignments, {n_drop} "
+          "dropped at the batch's capacity, each equal to the reference's "
+          "dispatch in numpy, index for index")
+    del params, tok, done, steps, routes
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # J2's hold: f32 on a 4-expert draw (see J_HOLD_EXPERTS)
+    hcfg = dataclasses.replace(cfg, num_experts=J_HOLD_EXPERTS,
+                               dtype="float32")
+    params = lm.init_params(hcfg, torch.Generator(dev).manual_seed(
+        SEED + 91), dev)
+    _widen(params)
+    done, _, steps, _ = _serve_recorded(hcfg, params, dev)
+    sv = _served_vs_forward(hcfg, params, done, steps, dev,
+                            f"J2 server f32 ({J_HOLD_EXPERTS} experts)",
+                            tie=SERVE_TIE["float32"],
+                            least=S2_LEAST[True])
+    j2["served_vs_forward"] = {k_: v_ for k_, v_ in sv.items()
+                               if k_ != "compared_tokens"}
+    print(f"  J2 server f32 ({P} layers, {J_HOLD_EXPERTS} experts) vs the "
+          f"teacher-forced forward: of {sv['tokens']} served tokens "
+          f"{sv['compared']} compared (left out: {sv['left_out_dropped']} "
+          f"from a dropped assignment on, {sv['left_out_parted']} from a "
+          f"near-tie route on), {sv['checked']} of them the forward's argmax"
+          f" at margins of at least {SERVE_TIE['float32']} x max(1, "
+          f"max|logit|); logits within {sv['max_gap_rel']:.3g} x that of "
+          "the forward's")
+    del params, done, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"J1-J2 done in {time.perf_counter() - t_s:.1f} s")
+
+    # -- J3. the smoke config on the card against the CPU ---------------------
+    t_s = time.perf_counter()
+    scfg = dataclasses.replace(get_smoke(J_ARCH), dtype="float32")
+    s64 = dataclasses.replace(scfg, dtype="float64")
+    flat = flatten(lm.init_params(scfg, torch.Generator().manual_seed(
+        SEED + 92), "cpu"))
+    flat = {k_: v_.float() for k_, v_ in flat.items()}
+    tok = torch.from_numpy(next(synthetic.token_batches(
+        J_TWIN_B, J_TWIN_S, scfg.vocab_size, seed=3))[0]["tokens"])
+    pc = unflatten({k_: v_.to(dev, copy=True) for k_, v_ in flat.items()})
+    ph = unflatten({k_: v_.clone() for k_, v_ in flat.items()})
+    p64 = unflatten({k_: v_.double() for k_, v_ in flat.items()})
+    j3 = {}
+    def nudged(params):
+        return unflatten({k_: v_.detach() * (1 + 1e-7)
+                          for k_, v_ in flatten(params).items()})
+
+    on_cuda = ops._on_cuda
+    with torch.no_grad():
+        (lc, _), rc = _routed(lm.forward, scfg, pc, tok.to(dev))
+        (lh, _), rh = _routed(lm.forward, scfg, ph, tok)
+        l64 = lm.forward(s64, p64, tok)[0]
+        sens = float((lm.forward(scfg, nudged(pc), tok.to(dev))[0] - lc)
+                     .abs().max())
+        ops._on_cuda = lambda t_: False      # the plain versions, on the card
+        try:
+            lp = lm.forward(scfg, pc, tok.to(dev))[0].cpu()
+        finally:
+            ops._on_cuda = on_cuda
+    check(all(np.array_equal(a[1], b[1]) for a, b in zip(rc, rh)),
+          "J3: the card routes a token otherwise than the CPU")
+    scale = max(1.0, float(lh.abs().max()))
+    j3["prefill"] = _twin_rows("J3 prefill", lc.cpu(), lh, l64, scale,
+                               SENS_K * sens)
+    j3["prefill_off_f64"] = {
+        "card": float((lc.cpu().double() - l64).abs().max()),
+        "card_plain": float((lp.double() - l64).abs().max()),
+        "cpu": float((lh.double() - l64).abs().max()),
+        "sensitivity": sens, "scale": scale}
+
+    def decode(params, d):
+        cache = lm.init_cache(scfg, J_TWIN_B, J_DECODE, d)
+        rows = []
+        with torch.no_grad():
+            for s_ in range(J_DECODE):
+                lg, _ = lm.decode_step(
+                    scfg, params, cache, tok[:, s_:s_ + 1].to(d),
+                    torch.full((J_TWIN_B,), s_, dtype=torch.int32,
+                               device=d))
+                rows.append(lg.cpu())
+        return torch.stack(rows)
+    dc_, dh = decode(pc, dev), decode(ph, "cpu")
+    dsens = float((decode(nudged(pc), dev) - dc_).abs().max())
+    j3["decode"] = _twin_rows("J3 decode", dc_, dh, None,
+                              max(1.0, float(dh.abs().max())),
+                              SENS_K * dsens)
+    batch = {k_: torch.from_numpy(v_) for k_, v_ in next(
+        synthetic.token_batches(J_TWIN_B, J_TWIN_S, scfg.vocab_size,
+                                seed=4))[0].items()}
+
+    def grads(c, params, d):
+        leaves = flatten(params)
+        for p in leaves.values():
+            p.requires_grad_(True)
+        loss, _ = lm.lm_loss(c, params, {k_: v_.to(d)
+                                         for k_, v_ in batch.items()})
+        loss.backward()
+        return loss.item(), {k_: p.grad.double().cpu()
+                             for k_, p in leaves.items()}
+    ops.reset_launches()
+    lcard, gc_ = grads(scfg, pc, dev)
+    gl = ops.launches()
+    _, gn = grads(scfg, nudged(pc), dev)
+    n_attn_s = sum(lm.sublayer_kind(scfg, j)["attn"]
+                   for j in range(scfg.num_layers))
+    n_ssm_s = scfg.num_layers - n_attn_s
+    check(gl == {**{k_: 0 for k_ in gl}, "flash_attention": n_attn_s,
+                 "flash_attention_bwd": n_attn_s, "ssd_chunk_scan": n_ssm_s,
+                 "ssd_chunk_scan_bwd": n_ssm_s},
+          f"J3 gradient: launches {gl}")
+    lcpu, gh = grads(scfg, ph, "cpu")
+    _, g64 = grads(s64, p64, "cpu")
+    check(abs(lcard - lcpu) <= 1e-5 * abs(lcpu), f"J3 loss: card {lcard}, "
+          f"CPU {lcpu}")
+    gmax = max(float(g.abs().max()) for g in gh.values())
+    far = []
+    for k_ in gh:
+        off = float((gc_[k_] - gh[k_]).abs().max())
+        if off <= J_TOL * gmax + SENS_K * float(
+                (gn[k_] - gc_[k_]).abs().max()):
+            continue
+        card = float((gc_[k_] - g64[k_]).abs().max())
+        cpu = float((gh[k_] - g64[k_]).abs().max())
+        check(card <= J_GRAD_K * cpu + J_TOL * gmax, f"J3 gradient {k_}: "
+              f"card vs CPU {off}, off f64 card {card}, CPU {cpu} (largest "
+              f"entry {gmax})")
+        far.append(k_)
+    j3["gradient"] = {"loss": [lcard, lcpu], "leaves": len(gh),
+                      "held_by_f64": far, "launches": gl}
+    off = j3["prefill_off_f64"]
+    print(f"J3 smoke {J_ARCH} f32, card vs CPU: prefill B={J_TWIN_B} "
+          f"S={J_TWIN_S} max diff {j3['prefill'][0]:.3g} (scale {scale:.3g},"
+          f" sensitivity {sens:.3g}; {j3['prefill'][1]} rows held by the "
+          f"f64 rule; off f64: card {off['card']:.3g}, the card's plain "
+          f"versions {off['card_plain']:.3g}, CPU {off['cpu']:.3g}), "
+          f"{J_DECODE} decode steps {j3['decode'][0]:.3g} (sensitivity "
+          f"{dsens:.3g}), lm_loss "
+          f"{lcard:.6f} vs {lcpu:.6f}, {len(gh)} gradient leaves within "
+          f"{J_TOL} of the largest entry ({len(far)} by the f64 rule: "
+          f"{far}); routes equal; "
+          f"{time.perf_counter() - t_s:.1f} s")
+    del pc, ph, p64
+
+    # -- J4. training through launch.train, counted ----------------------
+    t_s = time.perf_counter()
+    tcfg = get_smoke(J_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    counts = []
+    res = ltrain.train(tcfg, steps=J_STEPS, batch=J_TRAIN_B, seq=J_TRAIN_S,
+                       lr=LT_LR, device=dev, seed=SEED + 93, log_every=0,
+                       heartbeat=lambda s_, t_: counts.append(
+                           dict(ops.launches())))
+    torch.cuda.synchronize()
+    trained = ops.launches()
+    before = {k_: 0 for k_ in trained}
+    for j, now in enumerate(counts):
+        diff = {k_: now[k_] - before[k_] for k_ in now}
+        check(diff == {**{k_: 0 for k_ in now}, "flash_attention": n_attn_s,
+                       "flash_attention_bwd": n_attn_s,
+                       "ssd_chunk_scan": n_ssm_s,
+                       "ssd_chunk_scan_bwd": n_ssm_s},
+              f"J4 step {j}: launches {diff}")
+        before = now
+    check(len(res.losses) == J_STEPS and all(map(math.isfinite, res.losses)),
+          f"J4: losses {res.losses}")
+    params, opt = res.params, res.opt_state
+    step = loop.make_lm_step(tcfg, params, lambda s_: 1e-3)
+    batch = {k_: torch.from_numpy(v_).to(dev) for k_, v_ in next(
+        synthetic.token_batches(J_TRAIN_B, J_TRAIN_S, tcfg.vocab_size,
+                                seed=7))[0].items()}
+    opt, m0 = step(opt, batch, J_STEPS)
+    opt, m1 = step(opt, batch, J_STEPS + 1)
+    check(float(m0["moe_aux"]) > 0 and float(m1["loss"]) < float(m0["loss"]),
+          f"J4: the same batch's loss {float(m0['loss'])} -> "
+          f"{float(m1['loss'])}, aux {float(m0['moe_aux'])}")
+    need = n_par * (2 + 2 + 8) / 2 ** 30
+    j4 = {"layers": tcfg.num_layers, "steps": J_STEPS, "losses": res.losses,
+          "same_batch_loss": [float(m0["loss"]), float(m1["loss"])],
+          "step_wall_ms": 1e3 * statistics.median(res.step_s[1:]),
+          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "launches": trained, "full_width_gib": need}
+    print(f"J4 smoke {J_ARCH} ({tcfg.num_layers} layers, d_model "
+          f"{tcfg.d_model}) B={J_TRAIN_B} S={J_TRAIN_S} bf16 through "
+          f"launch.train: {J_STEPS} steps, loss {res.losses[0]:.4f} -> "
+          f"{res.losses[-1]:.4f}; the same batch {float(m0['loss']):.4f} -> "
+          f"{float(m1['loss']):.4f}; each step launched flash and its "
+          f"backward {n_attn_s}x, the scan and its backward {n_ssm_s}x; "
+          f"step wall {j4['step_wall_ms']:.3f} ms; "
+          f"{time.perf_counter() - t_s:.1f} s. Full width does not train "
+          f"on one card: J1's {n_par / 1e9:.1f} B parameters need "
+          f"{need:.0f} GiB for bf16 weights and gradients and f32 AdamW "
+          "moments alone, against 80 GB")
+    del params, opt, res, step, batch
+    torch.cuda.empty_cache()
+    report["jamba"] = {"j1": j1, "j2": j2, "j3": j3, "j4": j4,
+                       "times": {"flash_attention": tf,
+                                 "ssd_chunk_scan": ts}}
+
+    out = []
+    for name, t, src, replaces in (
+            ("flash_attention", tf, "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:65"),
+            ("ssd_chunk_scan", ts, "ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:34")):
+        cname = "flash_tc_kernel" if name == "flash_attention" \
+            else "ssd_scan_kernel"
+        us = j1.get(f"{cname}_us_per_launch")
+        e = {"name": f"{name}[{J_ARCH}]", "route": "cuda",
+             "source": f"src/repro_torch/kernels/csrc/{src}",
+             "replaces": replaces, "launches": launches[name],
+             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+             "device_ms": t["device_ms"],
+             "plain_device_ms": t["plain_device_ms"],
+             "library_device_ms": t["library_device_ms"],
+             "prefill_device_ms": None if us is None else us / 1e3,
+             "cuts": cuts}
+        if name == "ssd_chunk_scan":
+            e.update(segsum_ms=t["segsum_ms"],
+                     segsum_device_ms=t["segsum_device_ms"])
+        else:
+            e["library"] = "F.scaled_dot_product_attention, is_causal=True"
+        out.append(e)
+    return out
+
+
 def row(shape, fns, args, nbytes, op_secs, library_args=None):
     """CUDA-event times of kernel, plain version and library call (None if
     there is none; on ``library_args`` if given, else on the same inputs),
@@ -4001,11 +4664,18 @@ def main() -> None:
                                  gen, report, dw_shapes)
 
     # -- slice 11: the paper's pipeline (PP1-PP2 in pipeline_slice) --------
-    phase("paper pipeline (slice 11)", pipeline_slice, dev, report, trained,
-          samples)
+    ev = phase("paper pipeline (slice 11)", pipeline_slice, dev, report,
+               trained, samples)
     check(phase_s["paper pipeline (slice 11)"] < 60,
           "the paper pipeline phase took a minute or more")
     del trained
+
+    # -- slice 12: the search and trace planes (ST1-ST3) --------------------
+    phase("search and trace planes (slice 12)", search_trace_slice, report,
+          ev)
+    check(phase_s["search and trace planes (slice 12)"] < 30,
+          "the search and trace phase took 30 s or more")
+    del ev
 
     # -- slice 6: LM training (LT1-LT5 in lm_train_slice) ------------------
     lm_train_entries = phase("LM training (slice 6)", lm_train_slice, dev,
@@ -4018,6 +4688,9 @@ def main() -> None:
     # -- slice 10: phi-3-vision and whisper-small (V1-V4 in encdec_slice) --
     encdec_entries = phase("phi-3-vision and whisper-small (slice 10)",
                            encdec_slice, dev, gen, report)
+
+    # -- slice 12: jamba-1.5-large-398b (J1-J4 in jamba_slice) --------------
+    jamba_entries = phase("jamba (slice 12)", jamba_slice, dev, gen, report)
     report["phase_s"] = phase_s
 
     # -- 9. the kernels line -----------------------------------------------
@@ -4061,7 +4734,7 @@ def main() -> None:
             "plain_device_ms": device[name]["plain_ms"],
             "library_device_ms": device[name]["library_ms"]})
     kernels += (lm_entries + [train_entry] + lm_train_entries + arch_entries
-                + encdec_entries)
+                + encdec_entries + jamba_entries)
     report["kernels"] = kernels
     report["profiler_edge_loss"].append(edge_loss(t0))
     print("profiler loss at an unpadded window's start: " + "; ".join(

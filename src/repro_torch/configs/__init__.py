@@ -1,10 +1,8 @@
 """Architecture registry of the port: ``get_config`` / ``get_smoke``.
 
-The paper's XR workloads and nine of the JAX package's ten LM
-architectures are ported (in the reference registry's order).
-jamba-1.5-large-398b raises ``KeyError``: one period of its stack (8
-layers, about 40 B parameters) is 80 GB in bf16, more than one card holds,
-so it waits for sharding (ROADMAP.md, Queue 1, item 5).
+The paper's XR workloads and the JAX package's ten LM architectures are
+ported, in the reference registry's order. A name the reference does not
+know raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -23,6 +21,7 @@ _MODULES: Dict[str, str] = {
     "mixtral-8x7b": "mixtral_8x7b",
     "grok-1-314b": "grok1_314b",
     "mamba2-1.3b": "mamba2_1p3b",
+    "jamba-1.5-large-398b": "jamba_1p5_large_398b",
     "whisper-small": "whisper_small",
     "detnet": "detnet",
     "edsnet": "edsnet",
@@ -34,18 +33,11 @@ __all__ = ["ConvLayerSpec", "LM_ARCHS", "ModelConfig", "XRConfig", "XR_ARCHS",
            "get_config", "get_smoke", "smoke", "smoke_xr"]
 
 
-# architectures of repro.configs the port does not run yet, and why
-_WAITING = {"jamba-1.5-large-398b": "it waits for sharding: one period of "
-            "its stack is about 80 GB in bf16, more than one card holds "
-            "(ROADMAP.md, Queue 1, item 5)"}
-
-
 def _mod(name: str):
     if name not in _MODULES:
-        why = _WAITING.get(name, "no such architecture in repro.configs")
         raise KeyError(
-            f"arch {name!r} is not ported to repro_torch: {why}; it has "
-            f"{sorted(_MODULES)}")
+            f"arch {name!r} is not ported to repro_torch: no such "
+            f"architecture in repro.configs; it has {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

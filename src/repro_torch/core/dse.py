@@ -135,3 +135,14 @@ def sweep_system(streams=None, arch: str = "simba", node: int = 7,
         streams = xp.XR_BUNDLE
     return xp.SWEEPS["system"].rows(streams=streams, arch=arch, node=node,
                                     **kw)
+
+
+def sweep_trace(scenario="gaming", streams=None, arch: str = "simba",
+                node: int = 7, **kw) -> List[Dict]:
+    """Trace-driven dynamic simulation: one XR scenario (idle / gaming /
+    passthrough / multi_user) simulated over the placement lattice and
+    ranked by battery life (DESIGN.md §11)."""
+    if streams is None:
+        streams = xp.XR_BUNDLE
+    return xp.SWEEPS["trace"].rows(scenario=scenario, streams=streams,
+                                   arch=arch, node=node, **kw)

@@ -342,6 +342,20 @@ class Evaluator:
         """Columnar area evaluation of the whole space (one numpy pass)."""
         return columns.area(self.plan(points, for_area=True))
 
+    def evaluate_stream(self, space, chunk_size: int = 65536,
+                        with_area: bool = False):
+        """Chunked columnar evaluation: yield ``StreamChunk``s of <=
+        ``chunk_size`` points each, every chunk priced as ONE
+        ``EnergyTable`` (and optionally ``AreaTable``) pass with the
+        structural caches shared across chunks — peak memory is O(chunk)
+        while ``space`` may be a 10^6+-point ``LazySpace``
+        (``DesignSpace.product_iter``). Chunked output is byte-identical
+        to the one-shot ``evaluate_table``; see
+        ``repro_torch.search.stream``."""
+        from repro_torch.search.stream import evaluate_stream
+        return evaluate_stream(self, space, chunk_size=chunk_size,
+                               with_area=with_area)
+
     def evaluate(self, points: Iterable[DesignPoint],
                  batched: bool = True) -> "ResultSet":
         """Evaluate a space; with ``batched`` (default) the whole space is
@@ -441,6 +455,25 @@ class Evaluator:
         tab = self.system_table(spoints)
         return ResultSet([(p, tab.row(i)) for i, p in enumerate(tab.points)],
                          name=getattr(spoints, "name", "system"))
+
+    # --- trace (time-resolved) plane ----------------------------------------
+    def trace_table(self, spoints, scenario, battery_mah=None):
+        """Simulate a ``repro_torch.trace`` Scenario over systems: ALL
+        canonical windows x systems priced in one batched roll-up
+        (``schedule.window_rollup``). The flattening reuses the
+        ``(points, "system")`` geometry cache key, so trace and
+        steady-state pricing of the same points share one geometry."""
+        from repro_torch.trace import simulator
+        return simulator.simulate(self, spoints, scenario,
+                                  battery_mah=battery_mah)
+
+    def evaluate_trace(self, spoints, scenario, battery_mah=None
+                       ) -> "ResultSet":
+        """ResultSet counterpart: (SystemPoint, TraceReport) rows."""
+        tab = self.trace_table(spoints, scenario, battery_mah)
+        return ResultSet(
+            [(p, tab.report(i)) for i, p in enumerate(tab.points)],
+            name=f"trace:{scenario.name}")
 
 
 # ---------------------------------------------------------------------------
@@ -1064,6 +1097,43 @@ def system_rows(ev: Evaluator, streams=XR_BUNDLE, arch: str = "simba",
     return rows
 
 
+# --- beyond-paper: trace-driven dynamic simulation (repro_torch.trace) ------
+
+
+def trace_space(streams=XR_BUNDLE, arch: str = "simba", node: int = 7,
+                techs=PLACEMENT_TECHS, levels=None,
+                mode: str = "reload") -> SystemSpace:
+    """The trace sweep prices the same placement lattice the system sweep
+    does — a scenario is an axis of the EVALUATION, not of the space."""
+    return system_space(streams, arch, node, techs, levels, mode)
+
+
+def trace_rows(ev: Evaluator, scenario="gaming", streams=XR_BUNDLE,
+               arch: str = "simba", node: int = 7, techs=PLACEMENT_TECHS,
+               levels=None, mode: str = "reload",
+               battery_mah=None) -> List[Dict]:
+    """Simulate one scenario across the placement lattice and rank by
+    battery life: per placement, average/peak/p99 total power, deadline
+    misses, reload/wake energy over the scenario, and the hours a battery
+    budget sustains — the number that decides MRAM adoption under REAL
+    (bursty) XR load rather than steady-state rates. One batched pricing
+    pass over all windows x placements."""
+    from repro_torch.trace.scenario import get_scenario
+    if isinstance(scenario, str):
+        scenario = get_scenario(scenario)
+    space = trace_space(streams, arch, node, techs, levels, mode)
+    tab = ev.trace_table(list(space), scenario, battery_mah)
+    order = np.argsort(-tab.battery_h)
+    rows = []
+    for rank, i in enumerate(order, start=1):
+        p = tab.points[i]
+        rep = tab.report(int(i))
+        rows.append(dict(
+            rank=rank, workloads=p.workload_name, arch=p.arch, node=p.node,
+            placement=p.variant, **rep.to_row()))
+    return rows
+
+
 SWEEPS: Dict[str, Sweep] = {
     "fig2f": Sweep("fig2f", "Fig 2(f): EDP vs node, SRAM-only platforms",
                    fig2f_space, fig2f_rows),
@@ -1088,4 +1158,7 @@ SWEEPS: Dict[str, Sweep] = {
     "system": Sweep("system", "Beyond-paper: multi-stream XR system — "
                     "concurrent workloads time-shared on one accelerator",
                     system_space, system_rows),
+    "trace": Sweep("trace", "Beyond-paper: trace-driven dynamic simulation "
+                   "— XR scenarios over the placement lattice, ranked by "
+                   "battery life", trace_space, trace_rows),
 }

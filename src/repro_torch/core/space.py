@@ -222,8 +222,8 @@ def product_kwargs(norm: Dict[str, Tuple[Any, ...]],
                    combo: Sequence[Any]) -> Dict[str, Any]:
     """Merge one axis-value combination into ``DesignPoint`` kwargs
     (``Bind`` values contribute all their bound fields). Shared between the
-    eager ``DesignSpace.product`` and the JAX package's lazy row-major
-    iterators, so both resolve clashes identically."""
+    eager ``DesignSpace.product`` and the lazy row-major iterators
+    (``repro_torch.search.lazy``), so both resolve clashes identically."""
     kw: Dict[str, Any] = {}
     for axis_name, value in zip(norm, combo):
         fields = value.fields if isinstance(value, Bind) \
@@ -282,6 +282,18 @@ class DesignSpace:
         points = [DesignPoint(**product_kwargs(norm, combo))
                   for combo in itertools.product(*norm.values())]
         return cls(points, name=name, axes=norm)
+
+    @classmethod
+    def product_iter(cls, name: str = "space", **axes: Any) -> "Any":
+        """Lazy counterpart of ``product``: a generator-backed
+        ``repro_torch.search.lazy.LazySpace`` that yields the SAME points in
+        the SAME row-major order without ever materializing the cross product
+        (no de-duplication — aliased axes yield their duplicates). Compose
+        with ``where``/``map``, slice into bounded sub-spaces with
+        ``chunks(n)``, or stream it through
+        ``Evaluator.evaluate_stream``."""
+        from repro_torch.search.lazy import LazySpace
+        return LazySpace(name, axes)
 
     @classmethod
     def from_points(cls, points: Iterable[DesignPoint],

@@ -12,7 +12,7 @@ checkpoint, the token stream restarted at ``start * batch``. Parameters are
 random from seed 0 (a torch generator: the reference's law, other numbers).
 There is no ``--mesh``: the reference builds a mesh from the live devices
 and shards the parameters by their logical axes; the port runs on one
-device until the sharding slice (ROADMAP.md, Queue 1, item 5). ``--device
+device until the sharding slice (ROADMAP.md, Queue 1). ``--device
 cpu`` runs the plain PyTorch path on a host without a card; by default it
 runs on the card and raises on a host without one. On the card the
 attention and the SSD scan run forward and backward on the hand-written

@@ -71,11 +71,13 @@ def test_unported_architectures_raise_keyerror():
     assert get_config("detnet").name == "detnet"
     for arch in ("llama3.2-1b", "deepseek-7b", "yi-34b", "gemma2-9b",
                  "mixtral-8x7b", "grok-1-314b", "phi-3-vision-4.2b",
-                 "whisper-small"):
+                 "whisper-small", "jamba-1.5-large-398b"):
         assert get_config(arch).name == arch
+        assert get_smoke(arch).is_smoke
     for get in (get_config, get_smoke):
-        with pytest.raises(KeyError, match="not ported.*sharding"):
-            get("jamba-1.5-large-398b")
+        with pytest.raises(KeyError, match="not ported.*no such "
+                                           "architecture"):
+            get("jamba-2-large")
 
 
 def _run_smoke(cwd: Path):

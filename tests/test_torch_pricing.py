@@ -20,12 +20,13 @@ from repro_torch.models import xr
 
 ROOT = Path(__file__).resolve().parents[1]
 SWEEPS = ["fig2f", "fig3d", "fig4", "fig5", "table2", "table3", "lm_kv",
-          "quant", "placement", "system"]
+          "quant", "placement", "system", "trace"]
 
 
 def test_the_port_has_the_reference_sweeps_but_the_trace_plane():
-    assert list(xp.SWEEPS) == SWEEPS
-    assert set(jxp.SWEEPS) - set(xp.SWEEPS) == {"trace"}
+    """Every sweep of the reference, the trace plane's included, in the
+    reference's order."""
+    assert list(xp.SWEEPS) == SWEEPS == list(jxp.SWEEPS)
 
 
 def test_the_core_modules_are_the_reference_ones_but_roofline():
@@ -33,6 +34,11 @@ def test_the_core_modules_are_the_reference_ones_but_roofline():
              .glob("*.py")}
     want = {p.stem for p in (ROOT / "src" / "repro" / "core").glob("*.py")}
     assert names == want - {"roofline"}
+    for plane in ("search", "trace"):
+        got = {p.name for p in (ROOT / "src" / "repro_torch" / plane)
+               .glob("*.py")}
+        assert got == {p.name for p in (ROOT / "src" / "repro" / plane)
+                       .glob("*.py")}, plane
 
 
 @pytest.mark.parametrize("name", SWEEPS)

@@ -1,9 +1,10 @@
 """repro_torch's serving path against repro's: INT8 weight PTQ of the LM
 tree, the continuous-batching engine (twins of tests/test_serve.py, each
 also held token for token to the JAX engine on the same parameters) and the
-serve launcher, on the smoke configs of Llama-3.2-1B and Mamba-2-1.3B and of
+serve launcher, on the smoke configs of Llama-3.2-1B and Mamba-2-1.3B, of
 the ninth slice's DeepSeek-7B, Yi-34B, Gemma-2-9B, Mixtral-8x7B and
-Grok-1-314B (ring caches past the window, MoE decode batches)."""
+Grok-1-314B (ring caches past the window, MoE decode batches) and of
+Jamba-1.5-Large (KV, conv-window and SSM-state caches in one tree)."""
 import dataclasses
 
 import jax
@@ -62,7 +63,7 @@ def _ar(lo, hi):
 
 
 NEW_ARCHS = ["deepseek-7b", "yi-34b", "gemma2-9b", "mixtral-8x7b",
-             "grok-1-314b"]
+             "grok-1-314b", "jamba-1.5-large-398b"]
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b", *NEW_ARCHS])
@@ -90,7 +91,8 @@ def test_continuous_batching_matches_solo(arch):
     assert solo == want_solo and batched == want_b
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "grok-1-314b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "grok-1-314b",
+                                  "jamba-1.5-large-398b"])
 def test_moe_batched_decode_matches_the_reference(arch):
     """A MoE layer's capacity counts the tokens of the whole decode batch
     (``layers.moe_capacity``: 1 slot an expert at 1 to 3 tokens, 2 at 4),
@@ -140,6 +142,33 @@ def test_slot_reuse_no_state_leak():
     want, _ = _both(jcfg, tcfg, jp, tp, [(0, prompt, 4)], batch_size=1,
                     max_seq=32)
     assert first == want[0]
+
+
+def test_jamba_slot_reuse_zeroes_every_cache_kind():
+    """Admitting a request zeroes the slot's SSM state and conv window as
+    well as its K/V rows (the reference's ``engine.py:129-134``): in a
+    batch of 2, the same prompt through slot 0 before and after another
+    request gives the same tokens, and the reference's, while slot 1 keeps
+    its request's state; right after the refill, slot 0's rows of every
+    leaf are zero."""
+    jcfg, tcfg, jp, tp = _setup("jamba-1.5-large-398b")
+    reqs = [(0, _ar(2, 8), 4), (1, _ar(20, 31), 12), (2, _ar(40, 43), 2),
+            (3, _ar(2, 8), 4)]
+    want, got = _both(jcfg, tcfg, jp, tp, reqs, batch_size=2, max_seq=32)
+    assert got == want and got[0] == got[3]
+    eng = ServeEngine(tcfg, tp, batch_size=2, max_seq=32, device="cpu")
+    for uid, prompt, n in reqs[:2]:
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+    while eng.slots[0] is not None or not eng.slots[1]:
+        eng.step()
+    kinds = {k: float(t[:, 0].abs().max()) for blk in eng.cache.values()
+             for k, t in blk.items()}
+    assert set(kinds) == {"k", "v", "conv", "ssm"} and min(kinds.values()) > 0
+    eng.submit(Request(uid=2, prompt=_ar(40, 43), max_new_tokens=2))
+    eng._refill()
+    for blk in eng.cache.values():
+        for k, t in blk.items():
+            assert not t[:, 0].any() and t[:, 1].any(), k
 
 
 def test_engine_respects_max_seq_and_eos():
