@@ -4120,6 +4120,282 @@ def jamba_slice(dev, gen, report):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 13: sharding and the dry-run (S13-1 to S13-3)
+# ---------------------------------------------------------------------------
+
+S13_ARCH = "llama3.2-1b"
+S13_B, S13_STEPS = 2, 3
+S13_DRYRUN = (("llama3.2-1b", "train_4k"), ("mixtral-8x7b", "prefill_32k"),
+              ("jamba-1.5-large-398b", "long_500k"))
+S13_HBM_GIB = 80                 # the per-device state must fit under it
+S13_DRYRUN_S = 300               # limit of the three dry-run processes
+
+
+def _one_rank_group(dev):
+    """A one-rank NCCL process group on ``dev`` (a store in a file under
+    build/, no port to pick), and the (1, 1) ("data", "model") mesh."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    store = ROOT / "build" / "s13_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()),
+                            timeout=datetime.timedelta(seconds=120))
+    return init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+
+
+def _dryrun_start():
+    """S13-3: ``python -m repro_torch.launch.dryrun`` for each cell of
+    S13_DRYRUN, as processes of their own (the fake process group is
+    process-global), all started at once on the host. Returns the
+    processes for ``_dryrun_rows``."""
+    out_dir = ROOT / "build" / "s13_dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    procs, t0 = [], time.perf_counter()
+    for arch, shape in S13_DRYRUN:
+        out = out_dir / f"{arch}.{shape}.jsonl"
+        out.unlink(missing_ok=True)
+        procs.append((arch, shape, out, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", str(out)], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return procs, t0
+
+
+def _dryrun_rows(started, report):
+    """The rows of the processes ``_dryrun_start`` started, each checked:
+    no error, finite terms, the state a device under S13_HBM_GIB."""
+    import math
+    procs, t0 = started
+    rows = []
+    for arch, shape, out, start, p in procs:
+        try:
+            log, _ = p.communicate(timeout=max(1.0, S13_DRYRUN_S - (
+                time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for *_, q in procs:
+                q.kill()
+                q.communicate()
+            fail(f"S13-3 dry-run {arch} {shape}: no result in "
+                 f"{S13_DRYRUN_S} s")
+        wall = time.perf_counter() - start
+        check(p.returncode == 0 and out.exists(), f"S13-3 dry-run {arch} "
+              f"{shape}: exit {p.returncode}\n{log[-2000:]}")
+        row_ = json.loads(out.read_text().splitlines()[0])
+        check("error" not in row_ and "skipped" not in row_,
+              f"S13-3 dry-run {arch} {shape}: {row_}")
+        terms = ("t_compute", "t_memory", "t_collective", "hlo_gflops",
+                 "hlo_gb", "coll_gb")
+        check(all(math.isfinite(row_[k]) and row_[k] >= 0 for k in terms)
+              and row_["hlo_gflops"] > 0, f"S13-3 {arch} {shape}: {row_}")
+        state = row_["state_bytes_per_device"] / 2 ** 30
+        check(state < S13_HBM_GIB, f"S13-3 {arch} {shape}: {state:.2f} GiB "
+              f"of state a device, over {S13_HBM_GIB} GiB")
+        row_["process_wall_s"] = wall
+        rows.append(row_)
+        print(f"S13-3 dry-run {arch} x {shape} @ {row_['mesh']} (modelled "
+              f"H100 roofline): params {row_['param_bytes_per_device']/2**30:.3f}"
+              f" GiB, grads {row_['grad_bytes_per_device']/2**30:.3f}, AdamW "
+              f"{row_['opt_bytes_per_device']/2**30:.3f}, cache "
+              f"{row_['cache_bytes_per_device']/2**30:.3f} GiB a device; "
+              f"t_compute {1e3*row_['t_compute']:.2f} ms, t_memory "
+              f"{1e3*row_['t_memory']:.2f}, t_collective "
+              f"{1e3*row_['t_collective']:.2f} ({row_['bottleneck']}); "
+              f"trace {row_['compile_s']} s, process {wall:.1f} s wall")
+    report["s13_dryrun"] = rows
+    return rows
+
+
+def sharding_slice(dev, gen, report):
+    """S13-1 to S13-3 (slice 13): Llama-3.2-1B trained on a one-rank mesh
+    through ``launch.train.train(mesh=...)``, held bit for bit to the
+    unsharded run from the same seed, its flash launches counted in one
+    profiled sharded step and its step timed beside the unsharded one; the
+    unsharded run's checkpoint restored onto the mesh (``shardings=``) bit
+    for bit, and one step taken from it; the dry-run of three cells on the
+    production mesh, in processes of their own on the host, after the
+    timed steps (beside them they slowed the steps' host side and
+    themselves). Returns no kernel entries: the flash kernels' entries are
+    LT's."""
+    _sharded_llama(dev, report)
+    dry = _dryrun_start()
+    try:
+        _dryrun_rows(dry, report)
+    finally:
+        for *_, p in dry[0]:          # none outlives the phase
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return []
+
+
+def _sharded_llama(dev, report):
+    """S13-1 and S13-2 of ``sharding_slice``."""
+    import math
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models.params import flatten
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.train import loop, optim
+
+    cfg = get_config(S13_ARCH)
+    n = cfg.num_layers
+    ckpt = ROOT / "build" / "s13_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mesh = _one_rank_group(dev)
+    out = {}
+    try:
+        # -- S13-1: the same seed, unsharded and on the mesh ----------------
+        kw = dict(steps=S13_STEPS, batch=S13_B, seq=LM_S, lr=LT_LR,
+                  device=dev, seed=SEED + 130, log_every=0)
+        torch.cuda.empty_cache()
+        plain = ltrain.train(cfg, ckpt_dir=str(ckpt), ckpt_every=S13_STEPS,
+                             **kw)
+        counts = []
+        ops.reset_launches()
+        sharded = ltrain.train(cfg, mesh=mesh, heartbeat=lambda s, t:
+                               counts.append(dict(ops.launches())), **kw)
+        torch.cuda.synchronize()
+        before = {k: 0 for k in counts[0]}
+        for j, now in enumerate(counts):
+            diff = {k: now[k] - before[k] for k in now}
+            check(diff == {**{k: 0 for k in now}, "flash_attention": n,
+                           "flash_attention_bwd": n},
+                  f"S13-1 sharded step {j}: launches {diff}, not {n} flash "
+                  f"and {n} flash backward")
+            before = now
+        pl, ps = flatten(plain.params), flatten(sharded.params)
+        p_diff = {k: float((ps[k].to_local().float() - v.float()).abs().max())
+                  for k, v in pl.items()
+                  if not torch.equal(ps[k].to_local(), v)}
+        o_diff = [k for k in pl if not (
+            torch.equal(sharded.opt_state.m[k].to_local(), plain.opt_state.m[k])
+            and torch.equal(sharded.opt_state.v[k].to_local(),
+                            plain.opt_state.v[k]))]
+        print(f"S13-1 {S13_ARCH} B={S13_B} S={LM_S} bf16, {S13_STEPS} steps "
+              f"on a (1, 1) mesh: losses {sharded.losses} (unsharded "
+              f"{plain.losses}); {n} flash + {n} flash backward launches a "
+              f"step; parameters differing: {len(p_diff)} of {len(pl)}, "
+              f"moments differing: {len(o_diff)}")
+        check(sharded.losses == plain.losses and not p_diff and not o_diff,
+              f"S13-1: the sharded run is not the unsharded run bit for bit: "
+              f"losses {sharded.losses} vs {plain.losses}, parameters "
+              f"{p_diff}, moments {o_diff[:8]}")
+        out["losses"] = {"sharded": sharded.losses, "unsharded": plain.losses}
+        out["step_s"] = {"sharded": sharded.step_s,
+                         "unsharded": plain.step_s}
+
+        # -- S13-2: the unsharded run's checkpoint onto the mesh -----------
+        like = ltrain.train_tree(sharded.params, sharded.opt_state)
+        tree, step_, _ = ckpt_mod.restore(
+            str(ckpt), like, shardings=ltrain.shardings_of(like))
+        want = ltrain.train_tree(plain.params, plain.opt_state)
+        bad = []
+        for part, got_t, want_t in (("p", tree["p"], want["p"]),
+                                    ("m", tree["o"]["m"], want["o"]["m"]),
+                                    ("v", tree["o"]["v"], want["o"]["v"])):
+            gf = flatten(got_t)
+            bad += [f"{part}.{k}" for k, v in flatten(want_t).items()
+                    if not (sharding.is_dtensor(gf[k])
+                            and torch.equal(gf[k].to_local(), v))]
+        check(step_ == S13_STEPS and not bad and torch.equal(
+            tree["o"]["count"], want["o"]["count"].cpu()),
+              f"S13-2: restored leaves differ from the saved tree: {bad[:8]}")
+        print(f"S13-2 the unsharded run's checkpoint of step {step_} restored "
+              f"onto the mesh bit for bit ({len(pl)} parameter leaves and "
+              "both moments)")
+        del like, want
+        # one step on the mesh from the restored tree, the next batch
+        with sharding.use_mesh(mesh):
+            rp = tree["p"]
+            ropt = optim.AdamWState(flatten(tree["o"]["m"]),
+                                    flatten(tree["o"]["v"]),
+                                    tree["o"]["count"].to(dev))
+            rstep = loop.make_lm_step(cfg, rp, optim.cosine_schedule(
+                LT_LR, warmup=1, total=S13_STEPS + 1))
+            nb = next(synthetic.token_batches(
+                S13_B, LM_S, cfg.vocab_size, start_idx=S13_STEPS * S13_B))[0]
+            nb = {k: sharding.distribute(torch.from_numpy(v).to(dev),
+                                         sharding.resolve_spec(("batch",
+                                                                "seq")), mesh)
+                  for k, v in nb.items()}
+            ops.reset_launches()
+            ropt, m = rstep(ropt, nb, S13_STEPS)
+            torch.cuda.synchronize()
+            one = ops.launches()
+            rloss = float(sharding.whole(m["loss"]))
+        check(math.isfinite(rloss) and int(ropt.count) == S13_STEPS + 1
+              and one["flash_attention"] == n
+              and one["flash_attention_bwd"] == n,
+              f"S13-2: the step from the restored tree: loss {rloss}, count "
+              f"{int(ropt.count)}, launches {one}")
+        print(f"S13-2 one step on the mesh from the restored tree: loss "
+              f"{rloss:.4f}, {n} + {n} flash launches")
+        out["resumed_loss"] = rloss
+        del tree, rp, ropt, rstep, nb, m
+
+        # one step of each, profiled: launches, wall, busy, idle share
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+            synthetic.token_batches(S13_B, LM_S, cfg.vocab_size, seed=7))[0]
+            .items()}
+        names = [c for k in LT_KERNELS[S13_ARCH] for c in LT_CNAMES[k]]
+        prof = {}
+        for label, res in (("unsharded", plain), ("sharded", sharded)):
+            ctx = (sharding.use_mesh(mesh) if label == "sharded"
+                   else contextlib.nullcontext())
+            with ctx:
+                b = batch if label == "unsharded" else {
+                    k: sharding.distribute(v, sharding.resolve_spec(
+                        ("batch", "seq")), mesh) for k, v in batch.items()}
+                step = loop.make_lm_step(cfg, res.params, lambda s: 1e-5)
+                opt = res.opt_state
+                ops.reset_launches()
+                opt, _ = step(opt, b, S13_STEPS)
+                torch.cuda.synchronize()
+                one = ops.launches()
+                check(one["flash_attention"] == n
+                      and one["flash_attention_bwd"] == n,
+                      f"S13-1 profiled {label} step: launches {one}")
+                fp, by_name = wall_profile(lambda: step(opt, b, S13_STEPS),
+                                           reps=2, expect={c: n for c in names})
+            fp["launches"] = {k: v for k, v in one.items() if v}
+            fp["step_wall_ms"] = 1e3 * statistics.median(res.step_s[1:])
+            prof[label] = fp
+            busy = fp["device_busy_ms"]
+            print(f"  S13-1 {label} step: wall {fp['wall_ms']:.3f} ms "
+                  f"(launch.train's median {fp['step_wall_ms']:.3f}), device "
+                  "busy " + ("not measured" if busy is None else
+                             f"{busy:.3f} ms, idle share "
+                             f"{fp['idle_share']:.3f}") +
+                  f"; launches {fp['launches']}")
+            for kname, us in fp["top_kernels_us"]:
+                print(f"    {us:9.1f} us  {kname[:90]}")
+            del step, opt
+        out["steps"] = prof
+        out["dtensor_extra_wall_ms"] = (prof["sharded"]["wall_ms"]
+                                        - prof["unsharded"]["wall_ms"])
+        print(f"  S13-1 the sharded step's extra wall (DTensor's dispatch on "
+              f"the host): {out['dtensor_extra_wall_ms']:.3f} ms")
+        del plain, sharded, pl, ps
+        torch.cuda.empty_cache()
+
+    finally:
+        dist.destroy_process_group()
+    report["sharding"] = out
+
+
 def row(shape, fns, args, nbytes, op_secs, library_args=None):
     """CUDA-event times of kernel, plain version and library call (None if
     there is none; on ``library_args`` if given, else on the same inputs),
@@ -4691,6 +4967,10 @@ def main() -> None:
 
     # -- slice 12: jamba-1.5-large-398b (J1-J4 in jamba_slice) --------------
     jamba_entries = phase("jamba (slice 12)", jamba_slice, dev, gen, report)
+
+    # -- slice 13: sharding and the dry-run (S13-1 to S13-3) ---------------
+    phase("sharding and the dry-run (slice 13)", sharding_slice, dev, gen,
+          report)
     report["phase_s"] = phase_s
 
     # -- 9. the kernels line -----------------------------------------------

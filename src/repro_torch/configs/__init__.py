@@ -29,8 +29,17 @@ _MODULES: Dict[str, str] = {
 LM_ARCHS: List[str] = [k for k in _MODULES if k not in ("detnet", "edsnet")]
 XR_ARCHS: List[str] = ["detnet", "edsnet"]
 
-__all__ = ["ConvLayerSpec", "LM_ARCHS", "ModelConfig", "XRConfig", "XR_ARCHS",
-           "get_config", "get_smoke", "smoke", "smoke_xr"]
+__all__ = ["ConvLayerSpec", "LM_ARCHS", "ModelConfig", "SHAPES", "XRConfig",
+           "XR_ARCHS", "cell_is_runnable", "get_config", "get_smoke", "smoke",
+           "smoke_xr"]
+
+# Assigned input-shape sets (LM family): name -> (seq_len, global_batch, kind)
+SHAPES = {
+    "train_4k": (4_096, 256, "train"),
+    "prefill_32k": (32_768, 32, "prefill"),
+    "decode_32k": (32_768, 128, "decode"),
+    "long_500k": (524_288, 1, "decode"),
+}
 
 
 def _mod(name: str):
@@ -47,3 +56,13 @@ def get_config(name: str) -> Union[ModelConfig, XRConfig]:
 
 def get_smoke(name: str) -> Union[ModelConfig, XRConfig]:
     return _mod(name).SMOKE
+
+
+def cell_is_runnable(arch: str, shape: str) -> tuple[bool, str]:
+    """Assignment skip rules for (arch x shape) dry-run cells."""
+    cfg = get_config(arch)
+    if not isinstance(cfg, ModelConfig):
+        return False, "XR arch: evaluated on the edge-DSE plane, not the LM dry-run"
+    if shape == "long_500k" and not cfg.sub_quadratic:
+        return False, "long_500k skipped: pure full/windowed attention (see DESIGN §4)"
+    return True, ""

@@ -15,6 +15,9 @@ output through a raw pointer, so the result would carry no graph: on CUDA
 they raise when autograd would need one, rather than silently drop the
 gradient. On the CPU every function is its plain version, which autograd
 differentiates.
+
+A ``meta`` tensor (the dry-run's) goes to ``kernels.meta``: the kernels'
+output shapes and their cost, no data. Only meta takes that route.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 from repro_torch.kernels import depthwise_conv as _dw
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import int8_matmul as _mm
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
@@ -107,6 +111,8 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     under autograd it runs through ``FlashAttention`` (the forward also
     writes the log-sum-exp the backward reads); otherwise the forward kernel
     alone."""
+    if q.device.type == "meta":
+        return _meta.flash_attention(q, k, v, causal, window, softcap)
     if _on_cuda(q):
         if _needs_graph(q, k, v):
             return _fa.FlashAttention.apply(q, k, v, causal, window, softcap)
@@ -132,6 +138,8 @@ def ssd_chunk_scan(states, decay):
     """states (B,NC,H,P,N), decay (B,NC,H) -> the state before each chunk,
     (B,NC,H,P,N) in the states' dtype. On CUDA under autograd it runs
     through ``SsdChunkScan``."""
+    if states.device.type == "meta":
+        return _meta.ssd_chunk_scan(states, decay)
     if _on_cuda(states):
         if _needs_graph(states, decay):
             return _ssd.SsdChunkScan.apply(states, decay)

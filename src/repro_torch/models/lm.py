@@ -22,6 +22,9 @@ KV cache), cross-attention over an encoder's K/V, gated and plain SiLU and
 GeLU MLPs, top-k MoE with its aux loss, and Mamba-2 SSD; around them
 sandwich norms, embedding scaling, image embeddings over the first
 positions, sinusoidal positions and the final logit softcap.
+
+Under a bound mesh (``sharding.use_mesh``) the same functions run on
+DTensors, annotated where the reference annotates them (``shard``).
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDef, materialize
+from repro_torch import sharding
+from repro_torch.sharding import shard
 
 f32 = torch.float32
 
@@ -131,6 +136,21 @@ def _at(tree: Dict, r: int) -> Dict:
             for k, v in tree.items()}
 
 
+def _repeats(tree: Dict, R: int) -> list:
+    """Every repeat of a stacked tree, ``[_at(tree, r) for r < R]``, from
+    one ``unbind`` per leaf: views as ``_at``'s, and a backward that stacks
+    the R gradients once (indexing each repeat alone backs a full-size
+    zero-padded gradient per repeat, R^2 traffic over the stack). The
+    gradients are the same bits."""
+    if R == 0:
+        return []
+    flat = {k: torch.unbind(v, 0) if not isinstance(v, dict) else None
+            for k, v in tree.items()}
+    subs = {k: _repeats(v, R) for k, v in tree.items() if isinstance(v, dict)}
+    return [{k: subs[k][r] if flat[k] is None else flat[k][r]
+             for k in tree} for r in range(R)]
+
+
 # ---------------------------------------------------------------------------
 # sublayers (prefill form)
 # ---------------------------------------------------------------------------
@@ -184,6 +204,32 @@ def _apply_sublayer(cfg: ModelConfig, kind: Dict, p: Dict, x: torch.Tensor,
     return _ffn(cfg, kind, p, x, aux)
 
 
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return table[idx]
+
+
+def _images_per_shard(x: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
+    """``x[:b, :n, :d] = img`` on a mesh: each rank writes the image rows
+    of its batch shard into a copy of its shard (a rank's image gradient
+    covers its rows only: partial over the batch-split mesh dims)."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = sharding.current_mesh()
+    pl = tuple(x.placements)
+    off = int(compute_local_shape_and_global_offset(x.shape, mesh, pl)[1][0])
+    b, n, d = img.shape
+
+    def write(xl, whole):
+        r1 = max(0, min(xl.shape[0], b - off))
+        xl = xl.clone()
+        xl[:r1, :n, :d] = whole[off:off + r1]
+        return xl
+    rep = sharding.placements((), mesh)
+    grad = tuple(Partial() if q.is_shard() else r for q, r in zip(pl, rep))
+    return L._per_shard(write, (pl, rep), (pl,), x, img, in_grad=(pl, grad))
+
+
 def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
            image_embeds: Optional[torch.Tensor] = None,
            position: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -195,7 +241,8 @@ def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     sinusoidal positions: the table of S rows rounded to the activation
     dtype in prefill, each row's angles at its ``position`` (B,) in
     decode."""
-    x = params["embed"][tokens.to(torch.long)]
+    x = L.per_batch_shard(_rows, params["embed"], tokens.to(torch.long),
+                          whole=(0,))
     if cfg.scale_embedding:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -205,8 +252,11 @@ def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             raise ValueError(f"{cfg.name}: image_embeds "
                              f"{tuple(image_embeds.shape)} do not fit in the "
                              f"embedded tokens {tuple(x.shape)}")
-        b, n, d = image_embeds.shape
-        x[:b, :n, :d] = image_embeds.to(x.dtype)
+        if sharding.current_mesh() is not None:
+            x = _images_per_shard(x, image_embeds.to(x.dtype))
+        else:
+            b, n, d = image_embeds.shape
+            x[:b, :n, :d] = image_embeds.to(x.dtype)
     if cfg.rope_theta == 0:                      # absolute sinusoidal pos
         ad = L.acc_dtype(x)
         if position is not None:                 # decode: (B,) positions
@@ -215,7 +265,7 @@ def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             pos = L.sinusoidal_embedding(x.shape[1], cfg.d_model, x.device,
                                          ad)[None]
         x = x + pos.to(x.dtype)
-    return x
+    return shard(x, "batch", "seq", "embed")
 
 
 def _unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -225,7 +275,8 @@ def _unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].t() if cfg.tie_embeddings else params["head"]
     logits = (x @ head.to(x.dtype)).to(L.acc_dtype(x))
-    return L._softcap(logits, cfg.final_logit_softcap)
+    return shard(L._softcap(logits, cfg.final_logit_softcap), "batch", "seq",
+                 "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -242,10 +293,9 @@ def encode(cfg: ModelConfig, params: Dict, frames: torch.Tensor
     B, F_, D = frames.shape
     pos = L.sinusoidal_embedding(F_, D, frames.device,
                                  L.acc_dtype(frames))
-    x = frames + pos.to(frames.dtype)[None]
+    x = shard(frames + pos.to(frames.dtype)[None], "batch", "seq", "embed")
     positions = torch.arange(F_, device=x.device)[None].expand(B, F_)
-    for r in range(cfg.encoder_layers):
-        p = _at(enc["layers"], r)
+    for p in _repeats(enc["layers"], cfg.encoder_layers):
         h = L.rmsnorm(x, p["attn"]["norm"], cfg.norm_eps)
         x = x + L.attention(cfg, p["attn"], h, positions, causal=False)
         h = L.rmsnorm(x, p["mlp"]["norm"], cfg.norm_eps)
@@ -259,16 +309,18 @@ def encoder_kv(cfg: ModelConfig, params: Dict, enc_out: torch.Tensor
     request: {"k": [...], "v": [...]}, one (R, B, F, K, hd) tensor per
     sublayer of the period block (an einsum over the repeat dim, as the
     reference's ``lm.py:215-234``)."""
-    B, F_, _ = enc_out.shape
     K, hd = cfg.num_kv_heads, cfg.head_dim
     ks, vs = [], []
     for j in range(block_period(cfg)):
         p = params["blocks"][f"blk{j}"]["xattn"]
-        k = torch.einsum("bfd,rde->rbfe", enc_out, p["wk"])
-        v = torch.einsum("bfd,rde->rbfe", enc_out, p["wv"])
-        R = k.shape[0]
-        ks.append(k.reshape(R, B, F_, K, hd))
-        vs.append(v.reshape(R, B, F_, K, hd))
+        if sharding.current_mesh() is None:
+            k = torch.einsum("bfd,rde->rbfe", enc_out, p["wk"])
+            v = torch.einsum("bfd,rde->rbfe", enc_out, p["wv"])
+        else:       # the einsum's views would cut heads split on a mesh
+            k = torch.stack([enc_out @ w for w in p["wk"]])
+            v = torch.stack([enc_out @ w for w in p["wv"]])
+        ks.append(L._split_heads(k, K, hd, "kv_heads"))
+        vs.append(L._split_heads(v, K, hd, "kv_heads"))
     return {"k": ks, "v": vs}
 
 
@@ -300,8 +352,7 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
         enc_kv = encoder_kv(cfg, params, encode(cfg, params, encoder_frames))
     aux = torch.zeros((), dtype=L.acc_dtype(x), device=x.device)
     kinds = [sublayer_kind(cfg, j) for j in range(period)]
-    for r in range(num_repeats(cfg)):
-        blk = _at(params["blocks"], r)
+    for r, blk in enumerate(_repeats(params["blocks"], num_repeats(cfg))):
         for j in range(period):
             ekv = None if enc_kv is None else (enc_kv["k"][j][r],
                                                enc_kv["v"][j][r])
@@ -410,8 +461,9 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     period = block_period(cfg)
     x = _embed(cfg, params, tokens, None, position=position)
     kinds = [sublayer_kind(cfg, j) for j in range(period)]
-    for r in range(num_repeats(cfg)):
-        blk, blk_cache = _at(params["blocks"], r), _at(cache, r)
+    R = num_repeats(cfg)
+    for blk, blk_cache in zip(_repeats(params["blocks"], R),
+                              _repeats(cache, R)):
         for j in range(period):
             x = _decode_sublayer(cfg, kinds[j], blk[f"blk{j}"],
                                  blk_cache[f"blk{j}"], x, position)
@@ -422,13 +474,18 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
 # losses
 # ---------------------------------------------------------------------------
 
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.to(torch.long)[..., None])[..., 0]
+    return logz - gold
+
+
 def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross entropy; logits fp32 (B,S,V), labels (B,S);
-    with ``mask`` the masked mean (over at least one position)."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.to(torch.long)[..., None])[..., 0]
-    nll = logz - gold
+    with ``mask`` the masked mean (over at least one position). Under a
+    mesh each rank takes its batch shard's rows with the vocab whole."""
+    nll = L.per_batch_shard(_nll, logits, labels)
     if mask is not None:
         mask = mask.to(nll.dtype)
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
@@ -444,6 +501,7 @@ def lm_loss(cfg: ModelConfig, params: Dict, batch: Dict,
     logits, aux = forward(cfg, params, batch["tokens"],
                           image_embeds=batch.get("image_embeds"),
                           encoder_frames=batch.get("encoder_frames"))
-    loss = xent_loss(logits, batch["labels"], batch.get("mask"))
+    loss = shard(xent_loss(logits, batch["labels"], batch.get("mask")))
+    aux = shard(aux)                       # replicated scalars on a mesh
     total = loss + aux_weight * aux
     return total, {"xent": loss, "moe_aux": aux}

@@ -180,6 +180,24 @@ def to_jax(state_dict: Mapping[str, torch.Tensor]) -> Tuple[Dict, Dict]:
     return params, state
 
 
+def _map_defs(fn, defs) -> Dict:
+    return {k: _map_defs(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in defs.items()}
+
+
+def abstract(defs) -> Dict:
+    """The ParamDef tree as meta tensors of its shapes and dtypes (what the
+    dry-run traces; nothing is allocated)."""
+    return _map_defs(lambda d: torch.empty(d.shape, dtype=getattr(torch,
+                                                                  d.dtype),
+                                           device="meta"), defs)
+
+
+def logical_axes(defs) -> Dict:
+    """The ParamDef tree's logical axes, one tuple per leaf."""
+    return _map_defs(lambda d: d.axes, defs)
+
+
 def flatten(tree) -> Dict[str, torch.Tensor]:
     """A nested dict of leaves -> {"a.b.c": leaf}, in sorted key order (the
     reference's tree order, so sums over the leaves run in its order)."""

@@ -18,6 +18,13 @@ function available"). So a bfloat16 tensor is stored widened to float32,
 exactly, which both packages restore bit for bit into a bfloat16 leaf; a
 2-byte void entry (a bfloat16 checkpoint the reference wrote) is read back
 as its bits.
+
+Sharded trees (DTensor leaves): ``save`` gathers each leaf whole
+(``full_tensor``, on every rank) and rank 0 alone writes, so the files are
+the same bytes whatever the mesh; ``restore(..., shardings=)`` puts each
+leaf back as a DTensor on a mesh of the caller's choosing (an elastic
+restart on another mesh), as the reference ``device_put``s its leaves onto
+``NamedSharding``s.
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import sharding
 
 _SEP = "\x1f"          # flat-key separator (never appears in field names)
 
@@ -60,6 +69,7 @@ def _host(leaf) -> np.ndarray:
     """A numpy copy of a leaf (a CUDA tensor is copied to the host; a
     bfloat16 tensor widened to float32, exactly)."""
     if torch.is_tensor(leaf):
+        leaf = sharding.whole(leaf)
         if leaf.dtype == torch.bfloat16:
             leaf = leaf.float()
         return leaf.detach().cpu().numpy().copy()
@@ -70,9 +80,17 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
     return {key: _host(leaf) for key, leaf in _paths(tree)}
 
 
+def _rank() -> int:
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
 def _write(ckpt_dir: str, step: int, flat: Dict[str, np.ndarray],
            extra: Optional[Dict], keep: int) -> str:
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    if _rank() != 0:                  # one writer; every rank gathered
+        return final
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     np.savez(os.path.join(tmp, "arrays.npz"), **flat)
@@ -88,8 +106,13 @@ def _write(ckpt_dir: str, step: int, flat: Dict[str, np.ndarray],
 def save(ckpt_dir: str, step: int, tree, extra: Optional[Dict] = None,
          keep: int = 3) -> str:
     """Atomically write the checkpoint of ``step``; prune to ``keep``
-    newest."""
-    return _write(ckpt_dir, step, _flatten(tree), extra, keep)
+    newest. In a process group every rank calls it (the gathers are
+    collectives); rank 0 writes, and the ranks leave together."""
+    final = _write(ckpt_dir, step, _flatten(tree), extra, keep)
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+    return final
 
 
 def save_async(ckpt_dir: str, step: int, tree, extra=None, keep: int = 3
@@ -142,11 +165,44 @@ def _rebuild(like, prefix, data):
     return type(like)(vals)
 
 
-def restore(ckpt_dir: str, tree_like, step: Optional[int] = None
-            ) -> Tuple[Any, int, Dict]:
+def _is_sharding(x) -> bool:
+    """A ``shardings`` leaf: None, a tuple of placements, or (mesh,
+    placements)."""
+    if x is None:
+        return True
+    if not isinstance(x, tuple) or hasattr(x, "_fields"):
+        return False
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Placement
+    if len(x) == 2 and isinstance(x[0], DeviceMesh):
+        return True
+    return len(x) > 0 and all(isinstance(p, Placement) for p in x)
+
+
+def _reshard(t, sh):
+    if sh is None:
+        return t
+    from torch.distributed.tensor import Placement, distribute_tensor
+    mesh, pl = (None, sh) if isinstance(sh[0], Placement) else sh
+    mesh = mesh if mesh is not None else sharding.current_mesh()
+    if mesh is None:
+        raise ValueError("restore: placements without a mesh; pass "
+                         "(mesh, placements) or bind one (use_mesh)")
+    return distribute_tensor(t.to(mesh.device_type), mesh, pl,
+                             src_data_rank=None)
+
+
+def restore(ckpt_dir: str, tree_like, step: Optional[int] = None,
+            shardings=None) -> Tuple[Any, int, Dict]:
     """Restore into the structure of ``tree_like`` (leaves: tensors, whose
     dtypes are kept, or numpy arrays): CPU tensors, the latest step unless
-    ``step`` is given. Returns (tree, step, extra)."""
+    ``step`` is given. Returns (tree, step, extra).
+
+    ``shardings``: a tree of ``tree_like``'s structure whose leaves are
+    None (a plain CPU tensor), a tuple of DTensor placements (on the bound
+    mesh) or (mesh, placements): each such leaf comes back a DTensor on
+    that mesh's device, every rank keeping its shard of the whole array it
+    read. None: today's plain CPU tensors."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -154,6 +210,9 @@ def restore(ckpt_dir: str, tree_like, step: Optional[int] = None
     d = os.path.join(ckpt_dir, f"step_{step:010d}")
     with np.load(os.path.join(d, "arrays.npz")) as data:
         tree = _rebuild(tree_like, (), data)
+    if shardings is not None:
+        tree = sharding.tree_map(lambda sh, t: _reshard(t, sh), shardings,
+                                 tree, is_leaf=_is_sharding)
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     return tree, step, manifest["extra"]

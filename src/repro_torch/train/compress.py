@@ -4,7 +4,8 @@
 Before a data-parallel all-reduce each leaf is quantized to int8 with one
 scale per leaf; the quantization residual is carried to the next step
 (error feedback), so nothing of the gradient is lost over steps. Cuts the
-all-reduce's bytes 4x against f32.
+all-reduce's bytes 4x against f32. Sharded gradients (DTensors) keep
+one scale per leaf, its max reduced across the shards.
 """
 from __future__ import annotations
 
@@ -12,13 +13,14 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.sharding import replicating
+
 f32 = torch.float32
 Tensors = Dict[str, torch.Tensor]
 
 
 def init_error(params: Tensors) -> Tensors:
-    return {k: torch.zeros(p.shape, dtype=f32, device=p.device)
-            for k, p in params.items()}
+    return {k: torch.zeros_like(p, dtype=f32) for k, p in params.items()}
 
 
 def compress(grads: Tensors, error: Tensors
@@ -27,14 +29,16 @@ def compress(grads: Tensors, error: Tensors
     mean-reduce. ``round`` is half to even, as ``jnp.round``; the scale is
     a true division."""
     q, s, e = {}, {}, {}
-    for k, g in grads.items():
-        gf = g.to(f32) + error[k]
-        sk = torch.clamp_min(gf.abs().amax(), 1e-12) / torch.tensor(
-            127.0, dtype=f32, device=gf.device)
-        qk = torch.clamp(torch.round(gf / sk), -127, 127).to(torch.int8)
-        q[k], s[k], e[k] = qk, sk, gf - qk.to(f32) * sk
+    with replicating(grads.values()):
+        for k, g in grads.items():
+            gf = g.to(f32) + error[k]
+            sk = torch.clamp_min(gf.abs().amax(), 1e-12) / torch.tensor(
+                127.0, dtype=f32, device=gf.device)
+            qk = torch.clamp(torch.round(gf / sk), -127, 127).to(torch.int8)
+            q[k], s[k], e[k] = qk, sk, gf - qk.to(f32) * sk
     return q, s, e
 
 
 def decompress(q: Tensors, s: Tensors) -> Tensors:
-    return {k: q[k].to(f32) * s[k] for k in q}
+    with replicating(q.values()):
+        return {k: q[k].to(f32) * s[k] for k in q}

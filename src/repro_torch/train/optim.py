@@ -10,6 +10,11 @@ int32 count, which checkpoints under the reference's keys. Scalar divisors
 are 0-dim f32 tensors, so every division is a true f32 division on every
 device (a Python float divisor on a CUDA tensor becomes a multiply by its
 reciprocal).
+
+Sharded parameters (DTensors): the moments take each parameter's
+placements (``zeros_like``), the 0-dim constants are taken as replicated
+beside them (``sharding.replicating``), and the global norm's sums reduce
+across the shards. On one device the numbers are those of plain tensors.
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ import math
 from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
+
+from repro_torch.sharding import replicating
 
 f32 = torch.float32
 Tensors = Dict[str, torch.Tensor]
@@ -33,8 +40,7 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params: Tensors) -> AdamWState:
-    zeros = {k: torch.zeros(p.shape, dtype=f32, device=p.device)
-             for k, p in params.items()}
+    zeros = {k: torch.zeros_like(p, dtype=f32) for k, p in params.items()}
     dev = next(iter(params.values())).device if params else "cpu"
     return AdamWState(zeros, {k: z.clone() for k, z in zeros.items()},
                       torch.zeros((), dtype=torch.int32, device=dev))
@@ -50,14 +56,15 @@ def adamw_update(grads: Tensors, state: AdamWState, params: Tensors, *, lr,
     bc1 = 1 - b1 ** cf
     bc2 = 1 - b2 ** cf
     new_p, new_m, new_v = {}, {}, {}
-    for k, p in params.items():
-        g = grads[k].to(f32)
-        m2 = b1 * state.m[k] + (1 - b1) * g
-        v2 = b2 * state.v[k] + (1 - b2) * g * g
-        step = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
-        step = step + weight_decay * p.to(f32)
-        new_p[k] = (p.to(f32) - lr * step).to(p.dtype)
-        new_m[k], new_v[k] = m2, v2
+    with replicating(params.values()):
+        for k, p in params.items():
+            g = grads[k].to(f32)
+            m2 = b1 * state.m[k] + (1 - b1) * g
+            v2 = b2 * state.v[k] + (1 - b2) * g * g
+            step = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+            step = step + weight_decay * p.to(f32)
+            new_p[k] = (p.to(f32) - lr * step).to(p.dtype)
+            new_m[k], new_v[k] = m2, v2
     return new_p, AdamWState(new_m, new_v, c)
 
 
@@ -68,7 +75,7 @@ class SGDState(NamedTuple):
 
 def sgd_init(params: Tensors) -> SGDState:
     dev = next(iter(params.values())).device if params else "cpu"
-    return SGDState({k: torch.zeros(p.shape, dtype=f32, device=p.device)
+    return SGDState({k: torch.zeros_like(p, dtype=f32)
                      for k, p in params.items()},
                     torch.zeros((), dtype=torch.int32, device=dev))
 
@@ -76,16 +83,18 @@ def sgd_init(params: Tensors) -> SGDState:
 def sgd_update(grads: Tensors, state: SGDState, params: Tensors, *, lr,
                momentum=0.9) -> Tuple[Tensors, SGDState]:
     new_p, new_m = {}, {}
-    for k, p in params.items():
-        m2 = momentum * state.mom[k] + grads[k].to(f32)
-        new_p[k] = (p.to(f32) - lr * m2).to(p.dtype)
-        new_m[k] = m2
+    with replicating(params.values()):
+        for k, p in params.items():
+            m2 = momentum * state.mom[k] + grads[k].to(f32)
+            new_p[k] = (p.to(f32) - lr * m2).to(p.dtype)
+            new_m[k] = m2
     return new_p, SGDState(new_m, state.count + 1)
 
 
 def global_norm(tree: Tensors) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, the leaves' sums added
-    in order, in f32."""
+    in order, in f32 (over sharded leaves each sum is reduced across the
+    shards; the result is replicated)."""
     sq = sum(torch.sum(torch.square(t.to(f32))) for t in tree.values())
     return torch.sqrt(sq)
 
@@ -95,9 +104,11 @@ def clip_by_global_norm(grads: Tensors, max_norm: float
     """Scale every leaf by min(1, max_norm / norm); returns (clipped,
     norm)."""
     n = global_norm(grads)
-    scale = torch.clamp(_scalar(max_norm, n) / torch.clamp_min(n, 1e-9),
-                        max=1.0)
-    return {k: (g.to(f32) * scale).to(g.dtype) for k, g in grads.items()}, n
+    with replicating(grads.values()):
+        scale = torch.clamp(_scalar(max_norm, n) / torch.clamp_min(n, 1e-9),
+                            max=1.0)
+        return {k: (g.to(f32) * scale).to(g.dtype)
+                for k, g in grads.items()}, n
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int
