@@ -58,6 +58,16 @@ with the kernels' launch counts set to 0 just before it and read just after:
     MoE dispatch together, and its server, held in f32 to the
     teacher-forced forward on a 4-expert draw; its smoke config on the
     card against the CPU, and trained through ``launch.train``.
+  * sharding and the dry-run (slice 13, ``sharding_slice``, S13-1 to
+    S13-3), with TL5 (slice 14) inside S13-1: the dry-run's activation
+    peak tracker (``launch.dryrun.LivePeak``) around the unsharded Llama
+    step on the card's tensors, held to the allocator's peak;
+  * the last tools' twins and the analysis (slice 14, ``tools_slice``,
+    TL1-TL4): ``launch.calibrate`` (the tables against the pipeline's,
+    ``--kernels --check`` with the corners' launches counted),
+    ``launch.gridsearch`` over the whole grid, ``launch.hillclimb``'s DSE
+    and system modes, and ``python -m repro_torch.analysis --check``, on
+    the host.
 
 Before each path every kernel of it is held against its plain PyTorch
 version at the path's shapes; after it each kernel is timed beside its plain
@@ -4197,13 +4207,17 @@ def _dryrun_rows(started, report):
         state = row_["state_bytes_per_device"] / 2 ** 30
         check(state < S13_HBM_GIB, f"S13-3 {arch} {shape}: {state:.2f} GiB "
               f"of state a device, over {S13_HBM_GIB} GiB")
+        temp = row_["temp_bytes_per_device"]
+        check(isinstance(temp, int) and temp > 0, f"S13-3 {arch} {shape}: "
+              f"temp_bytes_per_device {temp!r}")
         row_["process_wall_s"] = wall
         rows.append(row_)
         print(f"S13-3 dry-run {arch} x {shape} @ {row_['mesh']} (modelled "
               f"H100 roofline): params {row_['param_bytes_per_device']/2**30:.3f}"
               f" GiB, grads {row_['grad_bytes_per_device']/2**30:.3f}, AdamW "
               f"{row_['opt_bytes_per_device']/2**30:.3f}, cache "
-              f"{row_['cache_bytes_per_device']/2**30:.3f} GiB a device; "
+              f"{row_['cache_bytes_per_device']/2**30:.3f} GiB, activation "
+              f"peak {temp/2**30:.3f} GiB a device; "
               f"t_compute {1e3*row_['t_compute']:.2f} ms, t_memory "
               f"{1e3*row_['t_memory']:.2f}, t_collective "
               f"{1e3*row_['t_collective']:.2f} ({row_['bottleneck']}); "
@@ -4362,7 +4376,11 @@ def _sharded_llama(dev, report):
                 step = loop.make_lm_step(cfg, res.params, lambda s: 1e-5)
                 opt = res.opt_state
                 ops.reset_launches()
-                opt, _ = step(opt, b, S13_STEPS)
+                if label == "unsharded":      # TL5, the same counted step
+                    opt, report["tl5"] = _tracked_step(step, opt, b,
+                                                       res.params, cfg)
+                else:
+                    opt, _ = step(opt, b, S13_STEPS)
                 torch.cuda.synchronize()
                 one = ops.launches()
                 check(one["flash_attention"] == n
@@ -4394,6 +4412,194 @@ def _sharded_llama(dev, report):
     finally:
         dist.destroy_process_group()
     report["sharding"] = out
+
+
+# -- slice 14: the last tools' twins, the analysis and the activation peak --
+TL_CORNER_LAUNCHES = {"int8_matmul": 1, "depthwise_conv3x3": 2,
+                      "quantize_rows": 1}
+TL_DSE = tuple((w, o) for w in ("detnet", "edsnet")
+               for o in ("edp", "energy", "pmem"))
+TL_S = 60                        # the phase's limit, seconds
+TL5_RTOL = 0.10                  # tracker vs allocator, and meta vs card,
+                                 # on the Llama step
+
+
+def _captured(fn, *args):
+    """(fn's result, what it printed)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def tools_slice(report):
+    """TL1-TL4 (slice 14): the port's twins of the remaining tools and its
+    static analysis, on the host beside the card. TL1: ``launch.calibrate``
+    in process, its Table-2 rows and Table-3 savings equal to PP2's
+    ``table2``/``table3`` rows at 7 nm, then ``--kernels --check`` against
+    ``calibrated_h100.json`` with the corners' launches counted. TL2:
+    ``launch.gridsearch`` over the whole 216-cell grid, then with
+    ``--system``. TL3: ``launch.hillclimb --dse`` for DetNet and EDSNet
+    under each objective, and ``--system`` on the XR bundle. TL4: ``python
+    -m repro_torch.analysis --check --stats`` on this checkout. (TL5 runs
+    inside S13-1, on the unsharded Llama step it profiles.) Every priced
+    figure is the model's estimate for an XR accelerator, not a
+    measurement of the card."""
+    import torch
+    from repro_torch.calibrate import harness
+    from repro_torch.kernels import ops
+    from repro_torch.launch import calibrate as lcal
+    from repro_torch.launch import gridsearch, hillclimb
+
+    out = {}
+    # -- TL1. calibrate: the tables, then the kernel gate ------------------
+    t = time.perf_counter()
+    tables, _ = _captured(lcal.tables)
+    pp = report["pipeline"]
+    want3 = {(r["workload"], r["arch"]): (r["p0_savings"], r["p1_savings"])
+             for r in pp["table3"]}
+    got3 = {k: tuple(float(x) for x in v)
+            for k, v in tables["table3"].items()}
+    check(got3 == want3, f"TL1 calibrate's Table-3 savings {got3} are not "
+          f"PP2's {want3}")
+    check(tables["table2"] == pp["table2"], f"TL1 calibrate's Table-2 rows "
+          f"{tables['table2']} are not PP2's {pp['table2']}")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    rc, log = _captured(lcal.main, ["--kernels", "--check"])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launches().items() if v}
+    check(rc == 0 and "calibrate --kernels --check: OK" in log,
+          f"TL1 calibrate --kernels --check: exit {rc}\n{log}")
+    check(launches == TL_CORNER_LAUNCHES, f"TL1 the corners' launches "
+          f"{launches}, not {TL_CORNER_LAUNCHES}")
+    out["calibrate_s"] = time.perf_counter() - t
+    print(f"TL1 launch.calibrate: Table-2 rows and Table-3 savings equal "
+          f"PP2's at 7 nm (modelled); --kernels --check green against "
+          f"{Path(harness.CALIB_PATH).name}, launches {launches}; "
+          f"{out['calibrate_s']:.2f} s")
+
+    # -- TL2. gridsearch over the whole grid, then with --system -----------
+    t = time.perf_counter()
+    results = gridsearch.run(quiet=True)
+    out["gridsearch_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    results_s, system = gridsearch.run(quiet=True, system=True)
+    out["gridsearch_system_s"] = time.perf_counter() - t
+    n_cells = 1
+    for v in gridsearch.GRID.values():
+        n_cells *= len(v)
+    check(len(results) == n_cells == 216 and results_s == results
+          and len(system) == 4, f"TL2 gridsearch: {len(results)} cells, "
+          f"system probe {system}")
+    err, knobs, best = results[0]
+    out["gridsearch_best"] = {"err": err, "knobs": list(knobs),
+                              "system": {f"{a} {v}": x for (a, v), x
+                                         in system.items()}}
+    print(f"TL2 launch.gridsearch: {len(results)} cells in "
+          f"{out['gridsearch_s']:.2f} s on the host ({out['gridsearch_system_s']:.2f}"
+          f" s with --system); best err {err:.4f} at knobs {knobs}; "
+          f"system probe (modelled) {out['gridsearch_best']['system']}")
+
+    # -- TL3. hillclimb's DSE and system modes ------------------------------
+    t = time.perf_counter()
+    climbs = {}
+    for w, o in TL_DSE:
+        (pt, val, steps), log = _captured(hillclimb.main, [
+            "--dse", "--workload", w, "--objective", o])
+        climbs[f"{w} {o}"] = {"steps": steps, "value": val,
+                              "optimum": log.strip().splitlines()[-1]}
+    (pt, val, steps), log = _captured(hillclimb.main, ["--system"])
+    climbs["system xr-bundle"] = {"steps": steps, "value": val,
+                                  "optimum": log.strip().splitlines()[-1]}
+    out["hillclimb_s"] = time.perf_counter() - t
+    for name, c in climbs.items():
+        check(c["steps"] > 0 and c["value"] > 0, f"TL3 {name}: {c}")
+        print(f"TL3 hillclimb {name}: {c['steps']} steps, local optimum "
+              f"(modelled): {c['optimum'].strip()}")
+    out["hillclimb"] = climbs
+
+    # -- TL4. the static analysis of the port, as its own process -----------
+    t = time.perf_counter()
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--check", "--stats"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=TL_S)
+    out["analysis_s"] = time.perf_counter() - t
+    check(proc.returncode == 0, f"TL4 repro_torch.analysis --check: exit "
+          f"{proc.returncode}\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    out["analysis"] = proc.stdout.strip().splitlines()
+    print(f"TL4 python -m repro_torch.analysis --check --stats: exit 0 in "
+          f"{out['analysis_s']:.2f} s")
+    for line in out["analysis"]:
+        print(f"  {line}")
+    report["tools"] = out
+    return out
+
+
+def _tracked_step(step, opt, batch, params, cfg):
+    """TL5: one unsharded Llama step of ``step`` under the dry-run's
+    ``LivePeak`` on the card's tensors, beside the allocator's peak over
+    the bytes allocated before it; the same step traced on ``meta``
+    copies of its inputs (the dry-run's route) beside both. Returns the
+    step's new optimizer state and the readings."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.models.params import flatten
+    from repro_torch.train import loop
+
+    def on_meta(tree):
+        return {k: on_meta(v) for k, v in tree.items()} if isinstance(
+            tree, dict) else tree.detach().to("meta")
+
+    # the step drops the previous step's gradients first thing; drop them
+    # before the baseline, or the allocator's peak over it falls short of
+    # what the step makes by their bytes
+    for p in flatten(params).values():
+        p.grad = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    peak = dryrun.LivePeak()
+    peak.exclude((params, opt, batch))
+    with peak:
+        new_opt, metrics = step(opt, batch, S13_STEPS)
+    torch.cuda.synchronize()
+    alloc = torch.cuda.max_memory_allocated() - before
+    phases = peak.phase_peaks((new_opt, metrics))
+    mparams = on_meta(params)
+    mopt = type(opt)(on_meta(opt.m), on_meta(opt.v), opt.count.to("meta"))
+    mbatch = on_meta(batch)
+    mstep = loop.make_lm_step(cfg, mparams, lambda s: 1e-5)
+    mpeak = dryrun.LivePeak()
+    mpeak.exclude((mparams, mopt, mbatch))
+    with mpeak:
+        mout = mstep(mopt, mbatch, S13_STEPS)
+    got = {"tracker_peak_bytes": peak.peak, "allocator_peak_bytes": alloc,
+           "temp_phase_bytes": phases, "temp_bytes": max(phases),
+           "meta_peak_bytes": mpeak.peak,
+           "meta_temp_phase_bytes": mpeak.phase_peaks(mout)}
+    rel = abs(peak.peak - alloc) / alloc
+    got["tracker_vs_allocator"] = rel
+    print(f"TL5 LivePeak on the unsharded {S13_ARCH} step (B={S13_B}, "
+          f"S={LM_S}, bf16): every storage the step makes at once "
+          f"{peak.peak / 2**30:.3f} GiB, the allocator's peak over the "
+          f"{before / 2**30:.3f} GiB before it {alloc / 2**30:.3f} GiB "
+          f"(off by {rel:.4f}); temporaries (neither inputs nor outputs) "
+          f"{max(phases) / 2**30:.3f} GiB, by phase (forward, backward, "
+          f"optimizer) {[round(x / 2**30, 3) for x in phases]} GiB; the "
+          f"same step on meta (the dry-run's route) "
+          f"{mpeak.peak / 2**30:.3f} GiB, temporaries "
+          f"{[round(x / 2**30, 3) for x in got['meta_temp_phase_bytes']]}")
+    check(rel <= TL5_RTOL, f"TL5: the tracker's {peak.peak} bytes and the "
+          f"allocator's {alloc} differ by {rel:.4f}, over {TL5_RTOL}")
+    meta_rel = abs(max(got["meta_temp_phase_bytes"]) - max(phases)) / max(
+        phases)
+    check(meta_rel <= TL5_RTOL, f"TL5: the meta trace's temporaries "
+          f"{got['meta_temp_phase_bytes']} and the card's {phases} differ "
+          f"by {meta_rel:.4f}, over {TL5_RTOL}")
+    return new_opt, got
 
 
 def row(shape, fns, args, nbytes, op_secs, library_args=None):
@@ -4971,6 +5177,11 @@ def main() -> None:
     # -- slice 13: sharding and the dry-run (S13-1 to S13-3) ---------------
     phase("sharding and the dry-run (slice 13)", sharding_slice, dev, gen,
           report)
+
+    # -- slice 14: the tools' twins and the analysis (TL1-TL4) ------------
+    phase("tools and analysis (slice 14)", tools_slice, report)
+    check(phase_s["tools and analysis (slice 14)"] < TL_S,
+          f"the tools and analysis phase took {TL_S} s or more")
     report["phase_s"] = phase_s
 
     # -- 9. the kernels line -----------------------------------------------

@@ -101,6 +101,10 @@ def cost_tally():
             self.by_op: Dict[str, float] = defaultdict(float)
             self.flops_by_op: Dict[str, float] = defaultdict(float)
             self.kernels: Dict[str, list] = defaultdict(lambda: [0, 0.0, 0.0])
+            # the step's activation peak and its phases' peaks, set by
+            # launch.dryrun.trace
+            self.temp_bytes = 0
+            self.temp_phases = [0]
 
         def kernel(self, name: str, ops: float, nbytes: float) -> None:
             k = self.kernels[name]

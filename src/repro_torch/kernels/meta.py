@@ -8,8 +8,12 @@ versions' shape arithmetic), and report the kernel's own work to
 ``counter`` (when set): its operations, counting the (query, key) pairs
 the kernel visits (the causal triangle, the sliding window's band), not
 the plain version's dense S x S, and its bytes, each input read once and
-each output written once. ``kernels.ops`` routes a meta tensor here and
-nothing else: a CUDA tensor always goes to its kernel.
+each output written once. Each allocates, in the card's layouts, and
+saves for its backward the tensors the card's wrapper does (the outputs
+as views of seq-major tensors, the forward's log-sum-exp, the backward's
+delta and partial sums), so the dry-run's activation peak sees the card's
+route. ``kernels.ops`` routes a meta tensor here and nothing
+else: a CUDA tensor always goes to its kernel.
 """
 from __future__ import annotations
 
@@ -55,19 +59,22 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, window: int = 0,
                 softcap: float = 0.0):
         B, H, S, D, _ = _fa.check_args(q, k, v, window, softcap)
-        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        o = _fa._seq_major(B, S, H, D, q)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
         pairs = B * H * visible_pairs(S, window, causal)
         _count("flash_attention", 4 * D * pairs, _bytes(q, k, v, o))
-        ctx.save_for_backward(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.pairs = pairs
         return o
 
     @staticmethod
     def backward(ctx, do) -> Tuple[Optional[torch.Tensor], ...]:
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
-                      for t in (q, k, v))
-        o_and_lse = _bytes(do) + q.shape[0] * q.shape[1] * q.shape[2] * 4
+        q, k, v, _, lse = ctx.saved_tensors
+        B, H, S, D = q.shape
+        K = k.shape[1]
+        dq, dk, dv = (_fa._seq_major(B, S, h, D, q) for h in (H, K, K))
+        delta = torch.empty_like(lse)
+        o_and_lse = _bytes(do) + _bytes(delta)
         _count("flash_attention_bwd", 10 * q.shape[3] * ctx.pairs,
                _bytes(q, k, v, do, dq, dk, dv) + o_and_lse)
         return dq, dk, dv, None, None, None
@@ -85,18 +92,21 @@ class SsdChunkScan(torch.autograd.Function):
                           device=states.device)
         _count("ssd_chunk_scan", 2 * states.numel(),
                _bytes(states, decay, out))
-        ctx.save_for_backward(states, decay)
+        ctx.save_for_backward(out, decay)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        states, decay = ctx.saved_tensors
-        ds = torch.empty(states.shape, dtype=states.dtype,
-                         device=states.device)
-        dd = torch.empty(decay.shape, dtype=decay.dtype, device=decay.device)
-        _count("ssd_chunk_scan_bwd", 4 * states.numel(),
-               _bytes(g, states, decay, ds, dd))
-        return ds, dd
+        out, decay = ctx.saved_tensors
+        B, NC, H, P, N = out.shape
+        ds = torch.empty(out.shape, dtype=g.dtype, device=g.device)
+        dd = torch.empty(decay.shape, dtype=torch.float32, device=g.device)
+        partial = torch.empty((B, NC, H, -(-P * N // _ssd.BWD_THREADS)),
+                              dtype=torch.float32, device=g.device)
+        _count("ssd_chunk_scan_bwd", 4 * out.numel(),
+               _bytes(g, out, decay, ds) + decay.numel() * 4)
+        del partial
+        return ds, dd if ctx.needs_input_grad[1] else None
 
 
 def flash_attention(q, k, v, causal: bool, window: int, softcap: float):

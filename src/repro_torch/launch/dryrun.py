@@ -20,15 +20,25 @@ device. For each cell it reports, per device:
   what a fused program moves), plus the kernels' inputs and outputs;
 - collective bytes by kind (the result of each collective on a rank);
 - the exact bytes of parameters, gradients and AdamW moments (train), or of
-  the decode cache, from the local shard shapes of the FULL config. The
-  activation peak is not measured (``temp_bytes_per_device`` is None).
+  the decode cache, from the local shard shapes of the FULL config;
+- the activation peak (``temp_bytes_per_device``): the most bytes of live
+  tensors on one rank (local shards) at any point of the step that are
+  neither inputs (parameters, optimizer state, cache, batch) nor outputs
+  of it, from ``LivePeak``, which adds each new storage's bytes when an op
+  makes it and takes them off when it dies. It plays the role of XLA's
+  ``temp_size_in_bytes`` in the reference, but is not the same number: XLA
+  counts the buffers of the fused, scheduled program after buffer
+  assignment; this counts eager aten ops' outputs, unfused, in the order
+  the step runs them (gradients are temporaries here, as there).
 
 Costs are linear in the period repeats R (homogeneous layer stacks), so as
 in the reference two traces, at R=1 and R=2 (plus a second encoder layer
 for whisper), price the full depth exactly; a cell traces at most three
-period blocks. Every term is a modelled H100 roofline figure
-(``core.roofline``), not a measurement. The fake group is process-global:
-run the dry-run as its own process wherever a real group may exist.
+period blocks. The activation peak is extrapolated the same way (held to a
+full-depth trace by the tests). Every term is a modelled H100 roofline
+figure (``core.roofline``), not a measurement. The fake group is
+process-global: run the dry-run as its own process wherever a real group
+may exist.
 """
 from __future__ import annotations
 
@@ -38,9 +48,11 @@ import dataclasses
 import json
 import sys
 import time
+import weakref
 from typing import Dict
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import sharding
 from repro_torch.configs import LM_ARCHS, SHAPES, cell_is_runnable, get_config
@@ -70,6 +82,110 @@ def fake_group(world_size: int):
         yield
     finally:
         dist.destroy_process_group()
+
+
+class LivePeak(TorchDispatchMode):
+    """Peak bytes of the tensors that the ops run inside it make, per rank.
+
+    Each op's output storages that are new (not an input's, not seen
+    before) add their bytes when the op returns them and take them off when
+    the storage dies (a weakref finalizer; storages keep their Python
+    object while they live). DTensor's ops reach it as the local ops of
+    this rank (it declines the DTensor level), and the ops DTensor's
+    sharding propagation runs on FakeTensors of the global shapes are not
+    counted. ``exclude`` registers the inputs before the step; after it,
+    ``peak`` is the most bytes of new storages live at once and
+    ``phase_peaks(outputs)`` the same without the storages of ``outputs``,
+    one peak for each phase of the step: a phase ends where autograd's
+    backward starts or ends (a train step: forward, backward, optimizer).
+    Each phase's peak is linear in the period repeats where the whole
+    step's, their maximum, is not. Works alike on meta, CPU and CUDA
+    tensors."""
+
+    def __init__(self):
+        super().__init__()
+        # live storage address -> [bytes, serial, finalizer]; an address is
+        # reused once its storage dies, a serial never
+        self._known: Dict[int, list] = {}
+        self._events = []                   # (serial, byte change, phase)
+        self._phase, self._backward = 0, False
+        self._live = 0
+        self.peak = 0
+        self._open = False
+        self._dtensor = None
+        if torch.distributed.is_available():
+            from torch.distributed.tensor import DTensor
+            self._dtensor = DTensor
+
+    def _storages(self, tree):
+        for leaf in _leaves(tree):
+            if torch.is_tensor(leaf):
+                t = leaf.to_local() if sharding.is_dtensor(leaf) else leaf
+                yield t.untyped_storage()
+
+    def exclude(self, tree) -> None:
+        """Mark the storages of ``tree`` (the step's inputs) as not new."""
+        for st in self._storages(tree):
+            self._known.setdefault(st._cdata, [0, -1, None])
+
+    def _change(self, serial: int, delta: int) -> None:
+        backward = torch._C._current_graph_task_id() != -1
+        if backward != self._backward:
+            self._backward = backward
+            self._phase += 1
+        self._live += delta
+        self._events.append((serial, delta, self._phase))
+        self.peak = max(self.peak, self._live)
+
+    def _freed(self, key: int) -> None:
+        entry = self._known.pop(key, None)
+        if entry is not None and self._open:
+            self._change(entry[1], -entry[0])
+
+    def _track(self, st) -> None:
+        key, n = st._cdata, st.nbytes()
+        entry = self._known.get(key)
+        if entry is None:
+            serial = len(self._events)
+            self._known[key] = [n, serial,
+                                weakref.finalize(st, self._freed, key)]
+            self._change(serial, n)
+        elif entry[2] is not None and entry[0] != n:    # resized in place
+            self._change(entry[1], n - entry[0])
+            entry[0] = n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self._dtensor is not None and any(
+                issubclass(t, self._dtensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if not (rl._fake(args) or rl._fake(out if isinstance(
+                out, (list, tuple)) else (out,))):
+            for st in self._storages(out):
+                self._track(st)
+        return out
+
+    def __enter__(self):
+        self._open = True
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self._open = False
+        for entry in self._known.values():
+            if entry[2] is not None:
+                entry[2].detach()
+        return super().__exit__(*exc)
+
+    def phase_peaks(self, outputs) -> list:
+        """The peak of each phase without the storages of ``outputs``."""
+        skip = {self._known[st._cdata][1] for st in self._storages(outputs)
+                if st._cdata in self._known}
+        live, peaks = 0, [0] * (self._phase + 1)
+        for serial, delta, phase in self._events:
+            if serial not in skip:
+                live += delta
+                peaks[phase] = max(peaks[phase], live)
+        return peaks
 
 
 def _opt_state_abstract(params_abs: Dict) -> optim.AdamWState:
@@ -172,16 +288,22 @@ def _leaves(tree):
 
 def trace(cfg, shape_name: str, mesh, rules=None):
     """One traced step of ``cfg`` on ``mesh``: (cost tally, outputs,
-    placed args). The tally holds the per-device costs."""
+    placed args). The tally holds the per-device costs, in ``temp_phases``
+    the activation peak of each phase of the step on one rank
+    (``LivePeak``) and in ``temp_bytes`` their maximum."""
     step_fn, args, axes = build_step(cfg, shape_name)
     placed = place(args, axes, mesh, rules)
     tally = rl.cost_tally()
+    peak = LivePeak()
+    peak.exclude(placed)
     meta.counter = tally.kernel
     try:
-        with sharding.use_mesh(mesh, rules), tally:
+        with sharding.use_mesh(mesh, rules), tally, peak:
             out = step_fn(**placed)
     finally:
         meta.counter = None
+    tally.temp_phases = peak.phase_peaks(out)
+    tally.temp_bytes = max(tally.temp_phases)
     return tally, out, placed
 
 
@@ -224,8 +346,9 @@ def memory_per_device(cfg, shape_name: str, mesh, rules=None) -> Dict:
 
 def extrapolated(cfg, shape_name: str, mesh, rules=None):
     """Per-device (flops, bytes, collective bytes, collectives by kind,
-    the R=2 trace's kernel tally and byte table) of the full depth, from
-    traces at R=1 and R=2 (and a second encoder layer for whisper)."""
+    the R=2 trace's kernel tally and byte table, activation peak bytes) of
+    the full depth, from traces at R=1 and R=2 (and a second encoder layer
+    for whisper)."""
     R_full = lm.num_repeats(cfg)
     t1, _, _ = trace(scaled_cfg(cfg, 1, enc_layers=1), shape_name, mesh,
                      rules)
@@ -235,6 +358,8 @@ def extrapolated(cfg, shape_name: str, mesh, rules=None):
     cost = [c1[i] + (c2[i] - c1[i]) * (R_full - 1) for i in range(3)]
     coll = {k: c1[3][k] + (c2[3][k] - c1[3][k]) * (R_full - 1)
             for k in c1[3]}
+    temp = [a + (b - a) * (R_full - 1)
+            for a, b in zip(t1.temp_phases, t2.temp_phases, strict=True)]
     if cfg.encoder_layers > 1:                # whisper: the encoder's term
         te, _, _ = trace(scaled_cfg(cfg, 1, enc_layers=2), shape_name, mesh,
                          rules)
@@ -243,7 +368,9 @@ def extrapolated(cfg, shape_name: str, mesh, rules=None):
             cost[i] += (ce[i] - c1[i]) * (cfg.encoder_layers - 1)
         for k in coll:
             coll[k] += (ce[3][k] - c1[3][k]) * (cfg.encoder_layers - 1)
-    return cost[0], cost[1], cost[2], coll, t2
+        temp = [t + (c - a) * (cfg.encoder_layers - 1) for t, a, c in
+                zip(temp, t1.temp_phases, te.temp_phases, strict=True)]
+    return cost[0], cost[1], cost[2], coll, t2, max(temp)
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -263,8 +390,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     rules = mesh_mod.shape_rules(cfg, shape_name)
 
     t0 = time.monotonic()
-    flops, byts, coll, by_kind, t2 = extrapolated(cfg, shape_name, mesh,
-                                                 rules)
+    flops, byts, coll, by_kind, t2, temp = extrapolated(cfg, shape_name,
+                                                        mesh, rules)
     mem = memory_per_device(cfg, shape_name, mesh, rules)
     t_trace = time.monotonic() - t0
     r = rl.Roofline(arch, shape_name, mesh_name, chips, flops * chips,
@@ -276,7 +403,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                  if kind == "train" else mem["cache_bytes_per_device"])
     row.update(mem)
     row.update(
-        output_bytes_per_device=state_out, temp_bytes_per_device=None,
+        output_bytes_per_device=state_out, temp_bytes_per_device=temp,
         coll_by_kind_gb={k: v / 1e9 for k, v in by_kind.items() if v},
         kernels_r2={k: v[0] for k, v in t2.kernels.items()},
         bytes_basis="unfused aten inputs+outputs",
@@ -287,6 +414,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
               f"flops/dev={flops/1e9:.1f}G bytes/dev={byts/1e9:.2f}GB "
               f"coll/dev={coll/1e9:.3f}GB "
               f"state/dev={mem['state_bytes_per_device']/2**30:.2f}GiB "
+              f"temp/dev={temp/2**30:.2f}GiB "
               f"bottleneck={r.bottleneck} "
               f"useful={r.useful_flop_frac:.2f} "
               f"roofline_frac={r.roofline_frac:.3f}", flush=True)

@@ -1,6 +1,7 @@
 """The port's dry-run (repro_torch.launch.dryrun) on torch's fake process
 group: meta tensors, per-device costs, the R=1/R=2 extrapolation, exact
-per-device state bytes, the kernels' meta route and the roofline probe.
+per-device state bytes, the activation peak (``LivePeak``), the kernels'
+meta route and the roofline probe.
 
 Each test that makes a fake group destroys it (``dryrun.fake_group``).
 """
@@ -62,6 +63,10 @@ def test_smoke_train_cell_counts_every_rank_s_share(tiny_shapes):
         4 * cfg.head_dim * pairs * layers
     assert 4 * four.flops >= one.flops
     assert sum(four.coll.values()) > 0 and sum(one.coll.values()) >= 0
+    # the activation peak: forward, backward and optimizer phases, each
+    # rank holding less than the whole step's temporaries
+    assert len(four.temp_phases) == len(one.temp_phases) == 3
+    assert 0 < four.temp_bytes < one.temp_bytes
     tok = placed["batch"]["tokens"]
     assert tok.device.type == "meta" and tuple(tok.shape) == (B, S)
     assert tok.to_local().shape[0] == B // 4
@@ -76,17 +81,79 @@ BYTES_RTOL = 0.02
 def test_extrapolation_equals_a_full_depth_trace(tiny_shapes):
     """cost(R) = a + R b: the R=1/R=2 traces price a four-repeat smoke
     Llama's operations and collectives as tracing it whole does, and its
-    bytes within BYTES_RTOL."""
+    bytes within BYTES_RTOL. The activation peak, extrapolated phase by
+    phase (each phase's peak is linear in R, their maximum is not: the
+    optimizer's peak overtakes the backward's between R=2 and R=4 here),
+    equals the whole trace's."""
     cfg = dataclasses.replace(get_smoke("llama3.2-1b"), num_layers=4)
     with dryrun.fake_group(4):
         mesh = _mesh((2, 2))
-        flops, byts, coll, by_kind, _ = dryrun.extrapolated(cfg, "train_4k",
-                                                            mesh)
+        flops, byts, coll, by_kind, _, temp = dryrun.extrapolated(
+            cfg, "train_4k", mesh)
         direct, _, _ = dryrun.trace(cfg, "train_4k", mesh)
+    assert temp == direct.temp_bytes > 0
+    assert direct.temp_phases.index(temp) == 2
     assert flops == pytest.approx(direct.flops, rel=1e-12)
     assert coll == pytest.approx(sum(direct.coll.values()), rel=1e-12)
     assert by_kind == pytest.approx(direct.coll, rel=1e-12)
     assert byts == pytest.approx(direct.bytes, rel=BYTES_RTOL)
+
+
+def test_rows_carry_the_activation_peak(monkeypatch, tiny_shapes):
+    """``run_cell``'s rows of a smoke Llama's prefill and decode cells on
+    a (2, 2) fake mesh: a positive ``temp_bytes_per_device``, which is
+    what one traced step of the cell holds (one phase, no R term)."""
+    monkeypatch.setattr(dryrun, "get_config", get_smoke)
+    cfg = get_smoke("llama3.2-1b")
+    with dryrun.fake_group(4):
+        mesh = _mesh((2, 2))
+        for shape in ("prefill_32k", "decode_32k"):
+            row = dryrun.run_cell("llama3.2-1b", shape, False,
+                                  verbose=False, mesh=mesh)
+            t, _, _ = dryrun.trace(cfg, shape, mesh)
+            assert isinstance(row["temp_bytes_per_device"], int)
+            assert row["temp_bytes_per_device"] == t.temp_bytes > 0, shape
+            assert len(t.temp_phases) == 1
+
+
+def _real(tree, gen):
+    """Real CPU tensors of the meta tree's shapes and dtypes."""
+    if isinstance(tree, dict):
+        return {k: _real(v, gen) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_real(v, gen) for v in tree))
+    if not torch.is_tensor(tree):
+        return tree
+    if tree.dtype.is_floating_point:
+        return torch.randn(tree.shape, generator=gen).to(tree.dtype)
+    return torch.randint(0, 64, tree.shape, generator=gen, dtype=tree.dtype)
+
+
+def test_live_peak_is_the_same_on_meta_and_real_cpu_tensors(tiny_shapes,
+                                                           monkeypatch):
+    """One unsharded smoke Llama train step, its inputs on the meta device
+    and then real CPU tensors: every phase's peak to the byte. On the CPU
+    the kernels' calls take their meta twins (which allocate what the
+    card's wrappers do), not the plain versions' dense scores, so both
+    runs take the card's route. The peak of all new storages is at least
+    the temporaries' (outputs add to it)."""
+    monkeypatch.setattr(ref, "flash_attention", meta.flash_attention)
+    monkeypatch.setattr(ref, "ssd_chunk_scan", meta.ssd_chunk_scan)
+    cfg = get_smoke("llama3.2-1b")
+    got = []
+    for real in (False, True):
+        step_fn, args, _ = dryrun.build_step(cfg, "train_4k")
+        if real:
+            args = _real(args, torch.Generator().manual_seed(0))
+        peak = dryrun.LivePeak()
+        peak.exclude(args)
+        with peak:
+            out = step_fn(**args)
+        got.append((peak.phase_peaks(out), peak.peak))
+        assert out[2].device.type == ("cpu" if real else "meta")
+    assert got[0] == got[1]
+    phases, whole = got[0]
+    assert len(phases) == 3 and 0 < max(phases) <= whole
 
 
 def _ref_local_bytes(arch):
