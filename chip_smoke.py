@@ -59,9 +59,13 @@ with the kernels' launch counts set to 0 just before it and read just after:
     teacher-forced forward on a 4-expert draw; its smoke config on the
     card against the CPU, and trained through ``launch.train``.
   * sharding and the dry-run (slice 13, ``sharding_slice``, S13-1 to
-    S13-3), with TL5 (slice 14) inside S13-1: the dry-run's activation
+    S13-4), with TL5 (slice 14) inside S13-1: the dry-run's activation
     peak tracker (``launch.dryrun.LivePeak``) around the unsharded Llama
-    step on the card's tensors, held to the allocator's peak;
+    step on the card's tensors, held to the allocator's peak; one served
+    decode step on the (1, 1) mesh held bit for bit to the unsharded
+    step, timed as the median of warm steps, and S13-4,
+    ``tools/mesh_sweep.py``'s F4 cells traced under this machine's torch
+    (slice 15);
   * the last tools' twins and the analysis (slice 14, ``tools_slice``,
     TL1-TL4): ``launch.calibrate`` (the tables against the pipeline's,
     ``--kernels --check`` with the corners' launches counted),
@@ -4131,11 +4135,13 @@ def jamba_slice(dev, gen, report):
 
 
 # ---------------------------------------------------------------------------
-# slice 13: sharding and the dry-run (S13-1 to S13-3)
+# slice 13: sharding and the dry-run (S13-1 to S13-4)
 # ---------------------------------------------------------------------------
 
 S13_ARCH = "llama3.2-1b"
 S13_B, S13_STEPS = 2, 3
+S13_DECODE_B, S13_DECODE_S = 4, 64      # S13-1's served decode step
+S13_DECODE_REPS = 5                     # its warm steps timed
 S13_DRYRUN = (("llama3.2-1b", "train_4k"), ("mixtral-8x7b", "prefill_32k"),
               ("jamba-1.5-large-398b", "long_500k"))
 S13_HBM_GIB = 80                 # the per-device state must fit under it
@@ -4176,6 +4182,40 @@ def _dryrun_start():
              arch, "--shape", shape, "--out", str(out)], env=env, cwd=ROOT,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     return procs, t0
+
+
+def _sweep_start():
+    """S13-4: ``tools/mesh_sweep.py --cells f4 --no-ranks`` in a process
+    of its own on the host, beside S13-3's: the cells the card machine's
+    torch refused before the decode and cross-attention tile ran per shard
+    (F4), traced on fake meshes, and the one-rank gloo decode step bit for
+    bit. The CPU tests run these cells under the sandbox's torch, whose
+    DTensor accepts what this one may refuse."""
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, str(ROOT / "tools" / "mesh_sweep.py"), "--cells",
+         "f4", "--no-ranks"], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def _sweep_check(started, report):
+    """The result of ``_sweep_start``'s process: exit 0, every cell traced
+    and the one-rank step bit for bit."""
+    start, p = started
+    try:
+        log, _ = p.communicate(timeout=S13_DRYRUN_S)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.communicate()
+        fail(f"S13-4 mesh sweep: no result in {S13_DRYRUN_S} s")
+    wall = time.perf_counter() - start
+    lines = [ln for ln in log.splitlines() if ln.startswith("mesh_sweep ")]
+    for ln in lines:
+        print(f"S13-4 {ln} ({wall:.1f} s wall)")
+    check(p.returncode == 0 and len(lines) == 2, f"S13-4 mesh sweep: exit "
+          f"{p.returncode}\n{log[-2000:]}")
+    report["s13_sweep"] = {"lines": lines, "process_wall_s": wall}
 
 
 def _dryrun_rows(started, report):
@@ -4226,23 +4266,98 @@ def _dryrun_rows(started, report):
     return rows
 
 
+def _sharded_decode(cfg, params, dparams, mesh, dev):
+    """S13-1's served decode step: one ``lm.decode_step`` of the trained
+    model at full width, B=S13_DECODE_B over a cache of S13_DECODE_S rows
+    filled with seeded random rows, at random positions, unsharded and on
+    the mesh (the cache and batch placed by ``dryrun.place`` under the
+    decode shape's rules, the parameters as the sharded run left them):
+    the logits and every cache leaf bit for bit, and the host ms of each
+    step (the median of S13_DECODE_REPS warm steps). The rules put the cache's sequence on the 1-way "model" axis (8
+    kv heads do not divide a 16-way one), a split ``sharding.placements``
+    makes ``Replicate()`` (F3)."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import lm
+    from repro_torch.models.params import flatten, logical_axes
+
+    B, S = S13_DECODE_B, S13_DECODE_S
+    g = torch.Generator(device=dev).manual_seed(SEED + 131)
+    cache = sharding.tree_map(
+        lambda t: torch.randn(t.shape, generator=g, device=dev).to(t.dtype),
+        lm.init_cache(cfg, B, S, device=dev))
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, 1), generator=g,
+                                     device=dev),
+             "position": torch.randint(0, S, (B,), generator=g, device=dev)}
+    rules = mesh_mod.shape_rules(cfg, "decode_32k")
+    placed = dryrun.place(
+        {"cache": sharding.tree_map(torch.clone, cache),
+         "batch": dict(batch)},
+        {"cache": logical_axes(lm.cache_defs(cfg, B, S)),
+         "batch": mesh_mod.input_axes(cfg, "decode_32k")}, mesh, rules)
+    with torch.no_grad():
+        want, want_cache = lm.decode_step(cfg, params, cache,
+                                          batch["tokens"], batch["position"])
+        with sharding.use_mesh(mesh, rules):
+            got, got_cache = lm.decode_step(
+                cfg, dparams, placed["cache"], placed["batch"]["tokens"],
+                placed["batch"]["position"])
+        # host ms of each step: the median of S13_DECODE_REPS warm steps on
+        # the same inputs (each writes the same cache rows again)
+        ms = {"unsharded": [], "sharded": []}
+        for _ in range(S13_DECODE_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lm.decode_step(cfg, params, cache, batch["tokens"],
+                           batch["position"])
+            torch.cuda.synchronize()
+            ms["unsharded"].append(1e3 * (time.perf_counter() - t))
+            with sharding.use_mesh(mesh, rules):
+                t = time.perf_counter()
+                lm.decode_step(cfg, dparams, placed["cache"],
+                               placed["batch"]["tokens"],
+                               placed["batch"]["position"])
+                torch.cuda.synchronize()
+                ms["sharded"].append(1e3 * (time.perf_counter() - t))
+    ms = {k: statistics.median(v) for k, v in ms.items()}
+    gf, wf = flatten(got_cache), flatten(want_cache)
+    bad = [k for k in wf if not torch.equal(sharding.whole(gf[k]), wf[k])]
+    same = sharding.is_dtensor(got) and torch.equal(sharding.whole(got),
+                                                    want)
+    print(f"S13-1 served decode step, full width, B={B}, a cache of {S}: "
+          f"on the (1, 1) mesh {'bit for bit' if same and not bad else 'NOT'}"
+          f" the unsharded step ({len(wf)} cache leaves); host ms, median "
+          f"of {S13_DECODE_REPS} warm steps: unsharded "
+          f"{ms['unsharded']:.3f}, sharded {ms['sharded']:.3f}")
+    check(same and not bad and bool(torch.isfinite(want).all()),
+          f"S13-1 decode on the mesh: logits equal {same}, cache leaves "
+          f"differing {bad[:8]}")
+    return {"batch": B, "cache_len": S, "host_ms": ms}
+
+
 def sharding_slice(dev, gen, report):
-    """S13-1 to S13-3 (slice 13): Llama-3.2-1B trained on a one-rank mesh
+    """S13-1 to S13-4 (slice 13): Llama-3.2-1B trained on a one-rank mesh
     through ``launch.train.train(mesh=...)``, held bit for bit to the
-    unsharded run from the same seed, its flash launches counted in one
-    profiled sharded step and its step timed beside the unsharded one; the
+    unsharded run from the same seed, and one served decode step of the
+    trained model on the mesh held bit for bit to the unsharded step, its
+    flash launches counted in one profiled sharded step and its step
+    timed beside the unsharded one; the
     unsharded run's checkpoint restored onto the mesh (``shardings=``) bit
     for bit, and one step taken from it; the dry-run of three cells on the
     production mesh, in processes of their own on the host, after the
     timed steps (beside them they slowed the steps' host side and
-    themselves). Returns no kernel entries: the flash kernels' entries are
-    LT's."""
+    themselves), and beside them S13-4, the mesh sweep of F4's cells under
+    this machine's torch. Returns no kernel entries: the flash kernels'
+    entries are LT's."""
     _sharded_llama(dev, report)
-    dry = _dryrun_start()
+    dry, sweep = _dryrun_start(), _sweep_start()
     try:
         _dryrun_rows(dry, report)
+        _sweep_check(sweep, report)
     finally:
-        for *_, p in dry[0]:          # none outlives the phase
+        for *_, p in dry[0] + [sweep]:      # none outlives the phase
             if p.poll() is None:
                 p.kill()
                 p.communicate()
@@ -4310,6 +4425,8 @@ def _sharded_llama(dev, report):
         out["losses"] = {"sharded": sharded.losses, "unsharded": plain.losses}
         out["step_s"] = {"sharded": sharded.step_s,
                          "unsharded": plain.step_s}
+        out["decode"] = _sharded_decode(cfg, plain.params, sharded.params,
+                                        mesh, dev)
 
         # -- S13-2: the unsharded run's checkpoint onto the mesh -----------
         like = ltrain.train_tree(sharded.params, sharded.opt_state)
@@ -4555,9 +4672,12 @@ def _tracked_step(step, opt, batch, params, cfg):
 
     # the step drops the previous step's gradients first thing; drop them
     # before the baseline, or the allocator's peak over it falls short of
-    # what the step makes by their bytes
+    # what the step makes by their bytes. Likewise collect the garbage of
+    # the phases before: tensors held by reference cycles count in the
+    # baseline and, freed by a collection inside the step, not in the peak
     for p in flatten(params).values():
         p.grad = None
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
@@ -5174,7 +5294,7 @@ def main() -> None:
     # -- slice 12: jamba-1.5-large-398b (J1-J4 in jamba_slice) --------------
     jamba_entries = phase("jamba (slice 12)", jamba_slice, dev, gen, report)
 
-    # -- slice 13: sharding and the dry-run (S13-1 to S13-3) ---------------
+    # -- slice 13: sharding and the dry-run (S13-1 to S13-4) ---------------
     phase("sharding and the dry-run (slice 13)", sharding_slice, dev, gen,
           report)
 

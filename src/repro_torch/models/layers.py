@@ -215,7 +215,32 @@ def _sdpa_block(q, k, v, mask, softcap: float, scale: float,
     softcap, the mask, softmax, probabilities rounded to q's dtype before
     the PV product.
 
-    q: (B,T,K,G,hd); k/v: (B,L,K,hd); mask broadcastable to (B,K,G,T,L)."""
+    q: (B,T,K,G,hd); k/v: (B,L,K,hd); mask broadcastable to (B,K,G,T,L).
+
+    Under a mesh the tile runs per shard of batch and kv heads, the keys
+    and the query's positions whole (``_per_shard``): DTensor's view rules
+    in torch 2.11 refuse its flatten of a split kv-head dim (F4). Keys
+    split along their sequence (the decode cells' sequence-parallel
+    caches: ``kv_seq`` on "model" where the kv heads do not divide it, on
+    the data axes for long_500k) stay DTensors, whose softmax gathers the
+    scores rather than the cache."""
+    if sharding.current_mesh() is None or (sharding.is_dtensor(k) and any(
+            p.is_shard(1) for p in k.placements)):
+        return _sdpa_tile(q, k, v, mask, softcap, scale, bf16_chain)
+    q = shard(q, "batch", None, "kv_heads", None, None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
+    if mask is not None:
+        mask = shard(mask, "batch", None, None, None, None)
+    pl = [None if t is None else tuple(t.placements) for t in (q, k, v, mask)]
+    return _per_shard(_sdpa_tile, (*pl, None, None, None), (pl[0],),
+                      q, k, v, mask, softcap, scale, bf16_chain)
+
+
+def _sdpa_tile(q, k, v, mask, softcap: float, scale: float,
+               bf16_chain: bool):
+    """``_sdpa_block`` on plain tensors, a rank's shards, or DTensors
+    whose keys are split along their sequence."""
     B, T, K, G, hd = q.shape
     L = k.shape[1]
     qf = q.permute(0, 2, 3, 1, 4).reshape(B, K, G * T, hd)

@@ -145,9 +145,13 @@ def placements(spec: Spec, mesh) -> tuple:
     ``Shard(d)`` if tensor dim d is split over it, else ``Replicate()``. A
     dim split over two mesh axes (("pod", "data")) is ``Shard(d)`` on both,
     the first the major one, which is DTensor's order when the axes are in
-    the mesh's order; any other order raises."""
+    the mesh's order; any other order raises. A mesh dim of size 1 is
+    ``Replicate()`` whatever the spec splits over it: a split over one
+    rank is no split, and DTensor refuses to view away a sharded dim (a
+    size-1 kv-head dim the divisibility rule keeps on a 1-way "model")."""
     from torch.distributed.tensor import Replicate, Shard
     names = list(mesh.mesh_dim_names)
+    sizes = tuple(mesh.shape)
     out = [Replicate()] * len(names)
     for d, part in enumerate(spec):
         axes = _parts(part)
@@ -156,7 +160,8 @@ def placements(spec: Spec, mesh) -> tuple:
             raise ValueError(f"spec {spec}: dim {d} is split over {axes}, "
                              f"not in the mesh's order {tuple(names)}")
         for i in idx:
-            out[i] = Shard(d)
+            if sizes[i] > 1:
+                out[i] = Shard(d)
     return tuple(out)
 
 

@@ -22,6 +22,7 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.kernels import meta, ops, ref
 from repro_torch.launch import dryrun
 from repro_torch.models.params import flatten
+from tools import mesh_sweep
 
 TINY = {"train_4k": (64, 4, "train"), "prefill_32k": (64, 4, "prefill"),
         "decode_32k": (64, 4, "decode")}
@@ -114,6 +115,46 @@ def test_rows_carry_the_activation_peak(monkeypatch, tiny_shapes):
             assert isinstance(row["temp_bytes_per_device"], int)
             assert row["temp_bytes_per_device"] == t.temp_bytes > 0, shape
             assert len(t.temp_phases) == 1
+
+
+CELLS = mesh_sweep.cells()
+
+
+@pytest.mark.parametrize("arch,mesh_shape,shape", CELLS,
+                         ids=[f"{a}-{m[0]}x{m[1]}-{s}" for a, m, s in CELLS])
+def test_every_smoke_cell_traces_on_every_small_mesh(arch, mesh_shape,
+                                                     shape, tiny_shapes):
+    """``dryrun.trace`` of a train, prefill and decode step of each smoke
+    architecture on the (1, 1), (4, 1), (2, 2) and (1, 4) fake meshes:
+    the step runs, its costs are positive, and its loss or logits are a
+    DTensor of their shape on the mesh. A kv-head dim of size 1 keeps its
+    split over a 1-way "model" axis (the reference's rule, ``fix_spec``),
+    and ``placements`` makes that split ``Replicate()``: a ``Shard`` there
+    made DTensor refuse the decode's score product its view (F3). The
+    decode and cross-attention tile runs per shard of batch and kv heads:
+    torch 2.11's DTensor refused its flatten of a split kv-head dim on the
+    (2, 2) and (1, 4) meshes (F4; ``tools/mesh_sweep.py`` runs these cells
+    without JAX under any torch)."""
+    t, out, mesh = mesh_sweep.trace_cell(arch, mesh_shape, shape)
+    assert t.flops > 0 and t.bytes > 0 and t.temp_bytes > 0
+    S, B, _ = TINY[shape]
+    V = mesh_sweep.smoke_cfg(arch).vocab_size
+    if shape == "train_4k":
+        leaf, want = out[2], ()
+    elif shape == "prefill_32k":
+        leaf, want = out, (B, S, V)
+    else:
+        leaf, want = out[0], (B, V)
+    assert leaf.device_mesh == mesh and tuple(leaf.shape) == want
+
+
+def test_one_rank_mesh_decode_step_is_the_unsharded_step(tiny_shapes):
+    """A smoke Llama (one kv head) ``decode_step`` on a one-rank gloo CPU
+    mesh (a ``file://`` store, as tests/test_torch_sharded_lm.py makes its
+    group), its parameters, cache (random rows) and batch placed by
+    ``dryrun.place``: the logits and every cache leaf equal the unsharded
+    step's bit for bit (``tools/mesh_sweep.one_rank_decode``)."""
+    assert mesh_sweep.one_rank_decode(TINY)
 
 
 def _real(tree, gen):

@@ -49,35 +49,66 @@ BF16_FLOOR = 2.0 ** -7
 DECODE_TOL = 1e-4
 
 
-def _one_repeat(arch, dtype):
+def one_repeat(arch, dtype, **cuts):
+    """(reference config, port config): one repeat of ``arch``'s layers,
+    vocabulary VOCAB, ``cuts`` on top."""
     full = jconfigs.get_config(arch)
     jcfg = dataclasses.replace(full, num_layers=jlm.block_period(full),
-                               vocab_size=VOCAB, dtype=dtype)
+                               vocab_size=VOCAB, dtype=dtype, **cuts)
     return jcfg, tconfigs.ModelConfig(**dataclasses.asdict(jcfg))
 
 
-def _reference(jcfg, jp, tok):
-    """(forward logits, teacher-forced decode logits), each (B,S,V) f32."""
+def reference(jcfg, jp, tok, frames=None, images=None, decode=True):
+    """(forward logits, teacher-forced decode logits or None, the jitted
+    forward), each (B,S,V) f32; whisper's decode with its cross cache
+    from ``encoder_kv``."""
     B, S = tok.shape
-    fwd = jax.jit(lambda p, t: jlm.forward(jcfg, p, t)[0])(jp,
-                                                            jnp.asarray(tok))
+    kw = {}
+    if frames is not None:
+        kw["encoder_frames"] = jnp.asarray(frames, jcfg.dtype)
+    if images is not None:
+        kw["image_embeds"] = jnp.asarray(images, jcfg.dtype)
+    fwd_fn = jax.jit(lambda p, t: jlm.forward(jcfg, p, t, **kw)[0])
+    fwd = np.asarray(fwd_fn(jp, jnp.asarray(tok)), np.float32)
+    if not decode:
+        return fwd, None, fwd_fn
     cache = jax.tree.map(jnp.zeros_like, jmaterialize(
         jlm.cache_defs(jcfg, B, S), jax.random.key(1)))
+    if frames is not None:
+        enc = jax.jit(lambda p, f: jlm.encoder_kv(
+            jcfg, p, jlm.encode(jcfg, p, f)))(jp, kw["encoder_frames"])
+        for j, (k, v) in enumerate(zip(enc["k"], enc["v"])):
+            cache[f"blk{j}"]["xk"], cache[f"blk{j}"]["xv"] = k, v
     step = jax.jit(lambda p, c, t, pos: jlm.decode_step(jcfg, p, c, t, pos))
     rows = []
     for s in range(S):
         logits, cache = step(jp, cache, jnp.asarray(tok[:, s:s + 1]),
                              jnp.full((B,), s, jnp.int32))
         rows.append(np.asarray(logits, np.float32))
-    return np.asarray(fwd, np.float32), np.stack(rows, 1)
+    return fwd, np.stack(rows, 1), fwd_fn
 
 
-def _port(tcfg, tp, tok):
+def port(tcfg, tp, tok, frames=None, images=None, decode=True):
+    """The port's (forward logits, teacher-forced decode logits or None),
+    as ``reference``, in ``tcfg``'s dtype (f64 for an f64 evaluation)."""
     B, S = tok.shape
+    dt = getattr(torch, tcfg.dtype)
     t = torch.from_numpy(tok)
+    kw = {}
+    if frames is not None:
+        kw["encoder_frames"] = torch.from_numpy(frames).to(dt)
+    if images is not None:
+        kw["image_embeds"] = torch.from_numpy(images).to(dt)
     with torch.no_grad():
-        fwd = lm.forward(tcfg, tp, t)[0].numpy()
+        fwd = lm.forward(tcfg, tp, t, **kw)[0].numpy()
+        if not decode:
+            return fwd, None
         cache = lm.init_cache(tcfg, B, S, device="cpu")
+        if frames is not None:
+            enc = lm.encoder_kv(tcfg, tp, lm.encode(tcfg, tp,
+                                                    kw["encoder_frames"]))
+            for j, (k, v) in enumerate(zip(enc["k"], enc["v"])):
+                cache[f"blk{j}"]["xk"], cache[f"blk{j}"]["xv"] = k, v
         rows = [lm.decode_step(tcfg, tp, cache, t[:, s:s + 1],
                                torch.full((B,), s))[0].numpy()
                 for s in range(S)]
@@ -91,19 +122,19 @@ def _port(tcfg, tp, tok):
     ("mamba2-1.3b", "bfloat16", SERVE_LEN),
     ("mamba2-1.3b", "float32", 512)])     # two chunks: the inter-chunk scan
 def test_decode_prefill_gap_at_full_width_matches_reference(arch, dtype, S):
-    jcfg, tcfg = _one_repeat(arch, dtype)
+    jcfg, tcfg = one_repeat(arch, dtype)
     jp = jmaterialize(jlm.param_defs(jcfg), jax.random.key(0))
     jp = jax.tree.map(lambda a: a.astype(dtype), jp)
     tok = next(synthetic.token_batches(BATCH, S, VOCAB, seed=1))[0]["tokens"]
-    ref_fwd, ref_dec = _reference(jcfg, jp, tok)
-    port_fwd, port_dec = _port(tcfg, lm_from_jax(jp), tok)
+    ref_fwd, ref_dec, fwd_fn = reference(jcfg, jp, tok)
+    port_fwd, port_dec = port(tcfg, lm_from_jax(jp), tok)
     scale = max(1.0, float(np.abs(ref_fwd).max()))
     ref_gap = float(np.abs(ref_fwd - ref_dec).max())
     port_gap = float(np.abs(port_fwd - port_dec).max())
     if dtype == "float32":
         nudged = dict(jp, embed=jp["embed"] * (1 + 1e-7))
-        floor = SENS_K * float(np.abs(
-            _reference(jcfg, nudged, tok)[0] - ref_fwd).max())
+        floor = SENS_K * float(np.abs(np.asarray(
+            fwd_fn(nudged, jnp.asarray(tok)), np.float32) - ref_fwd).max())
     else:
         floor = BF16_FLOOR * scale
     print(f"{arch} {dtype} S={S}: decode-vs-prefill gap reference "

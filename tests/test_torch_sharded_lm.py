@@ -25,7 +25,13 @@ dry-run does not run on this tree):
   loss (f32 parameters), with and without INT8 gradient compression;
 - ``checkpoint.restore(shardings=...)`` of a checkpoint the reference
   wrote and of one the sharded run wrote: the tree it returns, gathered,
-  equals the saved tree exactly.
+  equals the saved tree exactly;
+- ``tools/mesh_sweep.sharded_decode``: six decode steps of smoke
+  DeepSeek (4 kv heads, split over "model") and smoke Whisper (its
+  cross-attention over a filled cross cache) on the mesh, the cache and
+  batch placed by ``dryrun.place``, against the unsharded port's decode
+  (held to the reference by tests/test_torch_lm_archs.py and
+  test_torch_lm_encdec_vlm.py) within FWD_TOL of the logits' scale.
 """
 import dataclasses
 import datetime
@@ -41,6 +47,7 @@ import torch.multiprocessing as mp
 from repro_torch import configs as tconfigs
 from repro_torch.models import lm
 from repro_torch.models.params import flatten, unflatten
+from tools.mesh_sweep import DECODE_ARCHS, sharded_decode
 
 ARCHS = ["llama3.2-1b", "mixtral-8x7b", "mamba2-1.3b"]
 MOE = {"mixtral-8x7b"}
@@ -197,6 +204,8 @@ def _checks(rank, out_dir):
         "same_layout": all(
             tuple(v.placements) == tuple(flatten(dparams)[k].placements)
             for k, v in flatten(tree["p"]).items())}
+    res["decode"] = {arch: sharded_decode(arch, mesh)
+                     for arch in DECODE_ARCHS}
     if rank == 0:
         with open(os.path.join(out_dir, "res.json"), "w") as f:
             json.dump(res, f)
@@ -367,3 +376,6 @@ def test_sharded_lm_on_four_gloo_ranks_matches_the_reference(tmp_path):
     assert res["sharded_ckpt"] == {"step": STEPS, "exact": True,
                                    "dtensors": True, "plain_exact": True}
     assert res["ref_ckpt"] == {"exact": True, "same_layout": True}
+    for arch in DECODE_ARCHS:
+        got = res["decode"][arch]
+        assert got["kv_heads_split"] and got["off"] <= FWD_TOL, (arch, got)
